@@ -2,7 +2,7 @@
 
 These carry the values of diamond_tpu/configs/agent/default.yaml (the DIAMOND Atari
 agent), the ``world_model_env`` section of diamond_tpu/configs/trainer.yaml, the Atari
-frame size (configs/env/atari.yaml ``train.size``) and the two ``tpu`` options the port
+frame size (configs/env/atari.yaml ``train.size``) and the ``tpu`` options the port
 honours. The port reads no YAML: its machine may have no PyYAML, and a test holds these
 defaults equal to ``diamond_tpu.config.load_config("trainer")``.
 
@@ -101,9 +101,12 @@ class AgentConfig:
 
 @dataclass
 class RuntimeConfig:
-    """The trainer.yaml ``tpu`` options this slice follows. ``int8_rollout`` is not
-    among them: the port runs the rollout in ``compute_dtype`` (the int8 path is a
-    later slice)."""
+    """The trainer.yaml ``tpu`` options the port follows. ``int8_rollout``: calibrate
+    the denoiser and the rew/end model (``DiffusionSampler.calibrate``,
+    ``RewEndModel.calibrate``) so that the rollout runs the static int8 path on the site
+    kinds of ``int8_sites`` ('all' or a comma list of conv3x3, conv1x1, dense, lstm)."""
 
     compute_dtype: str = "bfloat16"
     pool_policy_feats: bool = True
+    int8_rollout: bool = True
+    int8_sites: str = "conv3x3,conv1x1"

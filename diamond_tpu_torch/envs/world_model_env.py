@@ -15,6 +15,10 @@ caller passes it; the same draws give the same trajectory.
 
 The pool pointer is a device tensor and dead-env resets are gathers and ``where``s, so
 a rollout step never waits on the host.
+
+The static int8 rollout (ops/quant.py) is structural: the sampler quantizes iff the
+denoiser holds a calibrated collection, and the rew/end step enters the int8 scope iff
+the rew/end model does. The IC burn-in (``make_ic_preparer``) never enters it.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from ..models.actor_critic import ActorCritic
 from ..models.denoiser import Denoiser
 from ..models.diffusion_sampler import DiffusionSampler
 from ..models.rew_end_model import RewEndModel
+from ..ops import quant
 
 
 @dataclass
@@ -139,8 +144,10 @@ class ImaginationEngine:
         prev_obs = obs_to_float(st.obs_buffer)
         next_obs = self.sampler.sample(prev_obs, act_buffer, x_init=x_init)
 
-        logits_rew, logits_end, (re_hx, re_cx) = self.rew_end_model.predict_rew_end(
-            prev_obs[:, -1:], act_buffer[:, -1:], next_obs[:, None], (st.re_hx, st.re_cx))
+        with quant.int8_scope(quant.has_collection(self.rew_end_model.net)):
+            logits_rew, logits_end, (re_hx, re_cx) = self.rew_end_model.predict_rew_end(
+                prev_obs[:, -1:], act_buffer[:, -1:], next_obs[:, None],
+                (st.re_hx, st.re_cx))
         rew = torch.argmax(logits_rew[:, 0] + gumbel_rew, dim=-1).float() - 1.0
         end = torch.argmax(logits_end[:, 0] + gumbel_end, dim=-1).to(torch.int32)
 

@@ -3,7 +3,10 @@
 The port keeps the JAX package's parameter names, shapes and layouts, so a model's state
 dict is its flax variable tree flattened, paths joined with ".": the ``params``
 collection becomes the parameters and ``constants`` (FourierFeatures' frequencies) the
-buffers. Trees here are nested dicts of numpy arrays (``jax.tree_util.tree_map(
+buffers. The int8 ``quant`` collection (calibrated ``act_scale`` with ``w_q``/``w_scale``,
+keyed by the same paths, the LSTM's at ``lstm.cell``) goes into the sites' collection
+buffers (ops/quant.py ``install``) and comes back out of them, ``w_q`` as int8 and the
+scales as f32. Trees here are nested dicts of numpy arrays (``jax.tree_util.tree_map(
 np.asarray, variables)`` on the JAX side); this module imports no jax.
 
 Reference-format torch checkpoints reach the port through the JAX package's numpy-only
@@ -19,17 +22,20 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..ops import quant
+
 COLLECTIONS = ("params", "constants")
+QUANT = "quant"
 
 
-def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     out = {}
     for k, v in tree.items():
         key = f"{prefix}{k}"
         if isinstance(v, Mapping):
             out.update(_flatten(v, key + "."))
         else:
-            out[key] = np.asarray(v)
+            out[key] = v
     return out
 
 
@@ -45,11 +51,11 @@ def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
 
 
 def variables_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """{"params": tree, "constants": tree} -> flat state dict of float32 CPU tensors."""
-    extra = set(variables) - set(COLLECTIONS)
+    """{"params": tree, "constants": tree} -> flat state dict of float32 CPU tensors
+    (a "quant" collection is not state; ``load_variables`` installs it)."""
+    extra = set(variables) - set(COLLECTIONS) - {QUANT}
     if extra:
-        raise ValueError(f"collections {sorted(extra)} have no counterpart in the port "
-                         "(the int8 'quant' collection is a later slice)")
+        raise ValueError(f"collections {sorted(extra)} have no counterpart in the port")
     sd: Dict[str, torch.Tensor] = {}
     for coll in COLLECTIONS:
         for k, v in _flatten(variables.get(coll, {})).items():
@@ -60,17 +66,23 @@ def variables_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Ten
 
 
 def module_to_variables(module: nn.Module) -> Dict[str, Any]:
-    """The inverse: a port module's weights as {"params": tree[, "constants": tree]} of
-    numpy arrays."""
+    """The inverse: a port module's weights as {"params": tree[, "constants": tree]
+    [, "quant": tree]} of numpy arrays."""
     buffers = {k for k, _ in module.named_buffers()}
     colls: Dict[str, Dict[str, np.ndarray]] = {"params": {}, "constants": {}}
     for k, v in module.state_dict().items():
         colls["constants" if k in buffers else "params"][k] = v.detach().cpu().numpy()
-    return {c: _unflatten(flat) for c, flat in colls.items() if flat}
+    out = {c: _unflatten(flat) for c, flat in colls.items() if flat}
+    q = quant.collection(module)
+    if q:
+        out[QUANT] = _unflatten({k: v.detach().cpu().numpy() for k, v in _flatten(q).items()})
+    return out
 
 
 def load_variables(module: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
-    """Load JAX variables into ``module`` (strict: every key must match both ways)."""
+    """Load JAX variables into ``module`` (strict: every key must match both ways), and
+    its "quant" collection, if it has one, into the sites (any previous one dropped)."""
     sd = variables_to_state_dict(variables)
     module.load_state_dict(sd, strict=True)
+    quant.install(module, variables.get(QUANT, {}))
     return module

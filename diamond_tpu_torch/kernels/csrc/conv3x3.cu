@@ -14,6 +14,8 @@
 // is bound by how fast tiles of x reach the tensor cores, not by their rate: each x
 // element is gathered up to nine times (once per tap), mostly from L1/L2.
 //
+// The GEMM view and its indexing are in conv_common.cuh.
+//
 // Design, simple first:
 //   * bf16: 64x64 output tile per block of 4 warps, K in steps of 32. The A tile is
 //     gathered from x with 16-byte loads when Cin % 8 == 0 (a run of 8 k's is 8
@@ -30,46 +32,11 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "conv_common.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-struct ConvShape {
-  int B, H, W, Cin, Cout, stride, Ho, Wo, K;
-  int64_t M;
-};
-
-// Output pixel m: where its sample starts in x and the input row/col of its window's
-// top-left tap.
-struct RowCoord {
-  int64_t base;
-  int iy0, ix0;
-  bool valid;
-};
-
-__device__ __forceinline__ RowCoord row_coord(const ConvShape& p, int64_t m) {
-  RowCoord r;
-  r.valid = m < p.M;
-  const int64_t mm = r.valid ? m : 0;
-  const int64_t hw = (int64_t)p.Ho * p.Wo;
-  const int b = (int)(mm / hw);
-  const int rem = (int)(mm - (int64_t)b * hw);
-  const int oy = rem / p.Wo, ox = rem - oy * p.Wo;
-  r.base = (int64_t)b * p.H * p.W * p.Cin;
-  r.iy0 = oy * p.stride - 1;
-  r.ix0 = ox * p.stride - 1;
-  return r;
-}
-
-// Offset in x of A[m, k], or -1 where the tap lies in the padding or k >= K.
-__device__ __forceinline__ int64_t x_offset(const ConvShape& p, const RowCoord& r, int k) {
-  if (!r.valid || k >= p.K) return -1;
-  const int tap = k / p.Cin, ci = k - tap * p.Cin;
-  const int ky = tap / 3, kx = tap - ky * 3;
-  const int iy = r.iy0 + ky, ix = r.ix0 + kx;
-  if (iy < 0 || iy >= p.H || ix < 0 || ix >= p.W) return -1;
-  return r.base + ((int64_t)iy * p.W + ix) * p.Cin + ci;
-}
 
 // ---------------------------------------------------------------------------
 // bf16 inputs, tensor cores through WMMA
@@ -276,17 +243,7 @@ conv3x3_f32_simt(const float* __restrict__ x, const float* __restrict__ w,
 extern "C" int conv3x3_fwd(const void* x, const void* w, const void* bias, void* y, int B,
                            int H, int W, int Cin, int Cout, int stride, int dtype,
                            void* stream) {
-  ConvShape p;
-  p.B = B;
-  p.H = H;
-  p.W = W;
-  p.Cin = Cin;
-  p.Cout = Cout;
-  p.stride = stride;
-  p.Ho = (H - 1) / stride + 1;
-  p.Wo = (W - 1) / stride + 1;
-  p.K = 9 * Cin;
-  p.M = (int64_t)B * p.Ho * p.Wo;
+  const ConvShape p = conv_shape(B, H, W, Cin, Cout, stride);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
   if (dtype == 1) {

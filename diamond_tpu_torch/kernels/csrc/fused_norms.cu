@@ -14,9 +14,9 @@
 // from the 50 MB L2.
 //
 // Design:
-//   * gn_stats: grid (S, B). Block (s, b) sums x and x^2 over one contiguous span of
-//     sample b (a whole number of pixels) and writes one partial per group. Splitting
-//     every sample into S spans keeps all 132 SMs busy at B*G = 64.
+//   * gn_stats (gn_common.cuh): grid (S, B). Block (s, b) sums x and x^2 over one
+//     contiguous span of sample b (a whole number of pixels) and writes one partial per
+//     group. Splitting every sample into S spans keeps all 132 SMs busy at B*G = 64.
 //   * gn_apply: grid (S, B). Each block first reduces the S partials of its sample to
 //     mean and 1/std per group (in a fixed order, so results do not change from run to
 //     run), then normalises, applies the affine or FiLM, and the SiLU.
@@ -28,109 +28,9 @@
 // The host wrapper (diamond_tpu_torch/ops/fused_norms.py) picks T and checks what this
 // needs: C % V == 0, (C / G) % V == 0, C / V <= 256, G <= 64, 16-byte aligned pointers.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gn_common.cuh"
 
 namespace {
-
-constexpr int kMaxThreads = 256;
-constexpr int kMaxGroups = 64;
-
-template <typename T>
-struct Vec;
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-};
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-};
-
-__device__ __forceinline__ void load_vec(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x;
-  out[1] = v.y;
-  out[2] = v.z;
-  out[3] = v.w;
-}
-
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store_vec(float* p, const float* in) {
-  *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-}
-
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* in) {
-  uint4 v;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// partials: (B, S, G, 2) f32, sums of x and x^2 over span s of sample b.
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-gn_stats_kernel(const T* __restrict__ x, float* __restrict__ partials, int64_t per_sample,
-                int C, int G, int64_t span, int S) {
-  constexpr int V = Vec<T>::N;
-  const int b = blockIdx.y, s = blockIdx.x, t = threadIdx.x, nt = blockDim.x;
-  const T* xb = x + (int64_t)b * per_sample;
-  const int64_t start = (int64_t)s * span;
-  const int64_t end = start + span < per_sample ? start + span : per_sample;
-
-  float sum = 0.f, sq = 0.f;
-  for (int64_t i = start + (int64_t)t * V; i < end; i += (int64_t)nt * V) {
-    float v[V];
-    load_vec(xb + i, v);
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      sum += v[j];
-      sq += v[j] * v[j];
-    }
-  }
-
-  __shared__ float s_sum[kMaxThreads], s_sq[kMaxThreads];
-  s_sum[t] = sum;
-  s_sq[t] = sq;
-  __syncthreads();
-
-  // each full warp reduces its groups over the threads whose channels lie in them
-  const int warp = t / 32, lane = t % 32, gs = C / G, warps = nt / 32;
-  for (int g = warp; warp < warps && g < G; g += warps) {
-    float a = 0.f, q = 0.f;
-    for (int u = lane; u < nt; u += 32) {
-      if (((u * V) % C) / gs == g) {
-        a += s_sum[u];
-        q += s_sq[u];
-      }
-    }
-    a = warp_sum(a);
-    q = warp_sum(q);
-    if (lane == 0) {
-      float* p = partials + (((int64_t)b * S + s) * G + g) * 2;
-      p[0] = a;
-      p[1] = q;
-    }
-  }
-}
 
 // y = [SiLU]((x - mean) * inv * a_c + shift_c), a_c = scale_c or 1 + scale_c.
 // scale/shift of sample b start at b * ss_bstride (0 for GroupNorm's shared affine).
@@ -142,26 +42,10 @@ gn_apply_kernel(const T* __restrict__ x, T* __restrict__ y, const float* __restr
                 int64_t span, int S, float count, float eps) {
   constexpr int V = Vec<T>::N;
   const int b = blockIdx.y, s = blockIdx.x, t = threadIdx.x, nt = blockDim.x;
-  const int warp = t / 32, lane = t % 32, gs = C / G, warps = nt / 32;
+  const int gs = C / G;
 
   __shared__ float s_mean[kMaxGroups], s_inv[kMaxGroups];
-  for (int g = warp; warp < warps && g < G; g += warps) {
-    float a = 0.f, q = 0.f;
-    for (int k = lane; k < S; k += 32) {
-      const float* p = partials + (((int64_t)b * S + k) * G + g) * 2;
-      a += p[0];
-      q += p[1];
-    }
-    a = warp_sum(a);
-    q = warp_sum(q);
-    if (lane == 0) {
-      const float mean = a / count;
-      const float var = q / count - mean * mean;
-      s_mean[g] = mean;
-      s_inv[g] = rsqrtf(var + eps);
-    }
-  }
-  __syncthreads();
+  gn_group_moments(partials, b, S, G, count, eps, s_mean, s_inv);
 
   const int c0 = (t * V) % C;
   const float mean = s_mean[c0 / gs], inv = s_inv[c0 / gs];
@@ -181,12 +65,7 @@ gn_apply_kernel(const T* __restrict__ x, T* __restrict__ y, const float* __restr
     float v[V];
     load_vec(xb + i, v);
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-      float o = (v[j] - mean) * inv;
-      o = o * mul[j] + add[j];
-      if (silu) o = o / (1.f + expf(-o));
-      v[j] = o;
-    }
+    for (int j = 0; j < V; ++j) v[j] = gn_affine_silu(v[j], mean, inv, mul[j], add[j], silu);
     store_vec(yb + i, v);
   }
 }

@@ -1,10 +1,11 @@
 """Agent container: the three models, initialised from a ``torch.Generator``
 (diamond_tpu/models/agent.py without optimizers and checkpoint IO, which come with the
-training slice)."""
+training slice). The models live on the card unless the caller asks for another
+device (the CPU tests pass ``device="cpu"``)."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn as nn
@@ -15,11 +16,13 @@ from .blocks import init_weights
 from .denoiser import Denoiser
 from .rew_end_model import RewEndModel
 
+
 class Agent:
-    """Parameters are float32; the models compute in ``compute_dtype``."""
+    """Parameters are float32; the models compute in ``compute_dtype``. The weights are
+    drawn from ``generator`` on the CPU, then moved to ``device``."""
 
     def __init__(self, cfg: AgentConfig, compute_dtype: torch.dtype = torch.float32,
-                 device: Optional[torch.device] = None,
+                 device: Union[str, torch.device] = "cuda",
                  generator: Optional[torch.Generator] = None) -> None:
         self.cfg = cfg
         self.denoiser = Denoiser(cfg.denoiser, compute_dtype)
@@ -28,9 +31,8 @@ class Agent:
         if generator is not None:
             for net in self.nets.values():
                 init_weights(net, generator)
-        if device is not None:
-            for net in self.nets.values():
-                net.to(device)
+        for net in self.nets.values():
+            net.to(device)
 
     @property
     def nets(self) -> Dict[str, nn.Module]:

@@ -12,6 +12,15 @@ them from a ``torch.Generator`` with the initialisers the JAX package mirrors
 
 Both norms run through the fused kernels (ops/fused_norms.py) and every 3x3 conv through
 the implicit-GEMM kernel (ops/conv3x3.py), as blocks.py does under DIAMOND_TPU_PALLAS=1.
+
+The static int8 rollout (ops/quant.py): Conv3x3, Conv1x1, QDense (and the LSTM cell)
+are sites with three cases inside an int8 scope: calibrating (record the input range,
+run the unquantized path), quantized (the module holds a calibrated ``act_scale``), or
+left out by ``int8_sites`` (no ``act_scale``: unquantized). Where a norm + SiLU feeds a
+quantized 3x3 conv (ResBlock norm1 -> conv1 and norm2 -> conv2, the denoiser's
+norm_out -> conv_out), the norm writes the conv's int8 codes itself (K4, ops/fused_q8.py)
+and the conv reads them (K5, ops/conv3x3_q8.py); every other quantized 3x3 conv
+quantizes x as K5 loads it.
 """
 
 from __future__ import annotations
@@ -23,7 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import adagn_silu, conv3x3, groupnorm_silu
+from ..ops import adagn_silu, adagn_silu_q8, conv3x3, groupnorm_silu, groupnorm_silu_q8, quant
 
 GN_GROUP_SIZE = 32
 ATTN_HEAD_DIM = 8
@@ -49,6 +58,11 @@ def init_weights(module: nn.Module, g: torch.Generator) -> None:
 # Linear layers
 
 
+def _channel_absmax(x: torch.Tensor) -> torch.Tensor:
+    """Per-channel (last axis) max |x| over every other axis, in f32."""
+    return x.float().abs().amax(dim=tuple(range(x.dim() - 1)))
+
+
 class Conv3x3(nn.Module):
     """3x3 SAME conv, stride 1 or 2; ``init`` is "torch" (kaiming-uniform), "zeros" or
     "orthogonal"."""
@@ -59,6 +73,7 @@ class Conv3x3(nn.Module):
         self.kernel = nn.Parameter(torch.empty(3, 3, in_channels, features))
         self.bias = nn.Parameter(torch.empty(features))
         self.dtype, self.strides, self.init = dtype, strides, init
+        quant.add_site_buffers(self)
 
     def reset_parameters(self, g: torch.Generator) -> None:
         k = self.kernel
@@ -73,6 +88,13 @@ class Conv3x3(nn.Module):
         self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, H, W, Cin); int8 x holds codes already quantized with this site's
+        scales (a quantizing norm's output)."""
+        if quant.quantized(self):
+            return quant.conv3x3_q8_static(x, self.kernel, self.act_scale, self.strides,
+                                           self.w_q, self.w_scale, self.bias, self.dtype)
+        if quant.recording():
+            quant.record(self, x.float().abs().amax(dim=(0, 1, 2)), "conv3x3", w=self.kernel)
         return conv3x3(x.to(self.dtype).contiguous(), self.kernel.to(self.dtype).contiguous(),
                        self.bias, self.strides)
 
@@ -86,6 +108,7 @@ class Conv1x1(nn.Module):
         self.kernel = nn.Parameter(torch.empty(1, 1, in_channels, features))
         self.bias = nn.Parameter(torch.empty(features))
         self.dtype, self.zero_init = dtype, zero_init
+        quant.add_site_buffers(self)
 
     def reset_parameters(self, g: torch.Generator) -> None:
         if self.zero_init:
@@ -96,13 +119,19 @@ class Conv1x1(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
+        if quant.quantized(self):
+            y = quant.matmul_q8_static(x, self.kernel[0, 0], self.act_scale, self.w_q,
+                                       self.w_scale).to(dt)
+            return y + self.bias.to(dt)
+        if quant.recording():
+            quant.record(self, _channel_absmax(x), "conv1x1", w=self.kernel[0, 0])
         return x.to(dt) @ self.kernel[0, 0].to(dt) + self.bias.to(dt)
 
 
 class QDense(nn.Module):
-    """Dense layer, kernel (in, out) (flax nn.Dense / diamond_tpu QDense without its int8
-    path). ``bias_fan_in``: U(+-1/sqrt(fan_in)) bias init, else zeros; ``zero_init``
-    zeroes the kernel too (the actor/critic heads)."""
+    """Dense layer, kernel (in, out) (flax nn.Dense), with the int8 "dense" site.
+    ``bias_fan_in``: U(+-1/sqrt(fan_in)) bias init, else zeros; ``zero_init`` zeroes the
+    kernel too (the actor/critic heads)."""
 
     def __init__(self, in_features: int, features: int, dtype: torch.dtype = torch.float32,
                  use_bias: bool = True, bias_fan_in: Optional[int] = None,
@@ -111,6 +140,7 @@ class QDense(nn.Module):
         self.kernel = nn.Parameter(torch.empty(in_features, features))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
         self.dtype, self.bias_fan_in, self.zero_init = dtype, bias_fan_in, zero_init
+        quant.add_site_buffers(self)
 
     def reset_parameters(self, g: torch.Generator) -> None:
         if self.zero_init:
@@ -125,7 +155,13 @@ class QDense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        y = x.to(dt) @ self.kernel.to(dt)
+        if quant.quantized(self):
+            y = quant.matmul_q8_static(x, self.kernel, self.act_scale, self.w_q,
+                                       self.w_scale).to(dt)
+        else:
+            if quant.recording():
+                quant.record(self, _channel_absmax(x), "dense", w=self.kernel)
+            y = x.to(dt) @ self.kernel.to(dt)
         return y if self.bias is None else y + self.bias.to(dt)
 
 
@@ -168,6 +204,12 @@ class GroupNorm(nn.Module):
                            self.fuse_silu)
         return y.to(self.dtype)
 
+    def q8(self, x: torch.Tensor, act_max: torch.Tensor) -> torch.Tensor:
+        """``forward(x)`` (with SiLU, x in ``dtype``) as the int8 codes of a quantized
+        conv with input scales ``act_max`` (K4)."""
+        return groupnorm_silu_q8(x.contiguous(), self.scale, self.bias,
+                                 num_groups(x.shape[-1]), act_max)
+
 
 class AdaGroupNorm(nn.Module):
     """Affine-free GN, FiLM x*(1+scale)+shift from a linear on the conditioning vector,
@@ -183,6 +225,22 @@ class AdaGroupNorm(nn.Module):
         ss = self.linear(cond)
         y = adagn_silu(x.contiguous(), ss, num_groups(x.shape[-1]), self.fuse_silu)
         return y.to(self.dtype)
+
+    def q8(self, x: torch.Tensor, cond: torch.Tensor, act_max: torch.Tensor) -> torch.Tensor:
+        """``forward(x, cond)`` (with SiLU, x in ``dtype``) as the int8 codes of a
+        quantized conv with input scales ``act_max`` (K4)."""
+        return adagn_silu_q8(x.contiguous(), self.linear(cond), num_groups(x.shape[-1]),
+                             act_max)
+
+
+def norm_silu_conv(norm: nn.Module, conv: Conv3x3, x: torch.Tensor, *cond) -> torch.Tensor:
+    """``conv(norm(x, *cond))`` for a norm with fused SiLU. Where the conv is quantized
+    and x is in the norm's dtype (so the norm's output is x's dtype, as K4 rounds it),
+    the norm writes the conv's int8 codes and the conv reads them: the same codes the
+    conv would make of the norm's output, without the bf16 tensor in between."""
+    if quant.quantized(conv) and x.dtype == norm.dtype:
+        return conv(norm.q8(x, *cond, conv.act_scale))
+    return conv(norm(x, *cond))
 
 
 # ---------------------------------------------------------------------------
@@ -301,8 +359,8 @@ class ResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         r = x if self.proj is None else self.proj(x)
-        y = self.conv1(self.norm1(x, cond))
-        y = self.conv2(self.norm2(y, cond))
+        y = norm_silu_conv(self.norm1, self.conv1, x, cond)
+        y = norm_silu_conv(self.norm2, self.conv2, y, cond)
         y = y + r
         return y if self.attn is None else self.attn(y)
 

@@ -70,8 +70,11 @@ class Denoiser:
                 obs: torch.Tensor, act: torch.Tensor,
                 obs_features: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Single denoising evaluation."""
-        sigma = torch.as_tensor(sigma, dtype=torch.float32, device=noisy_next_obs.device)
-        sigma = sigma.expand(noisy_next_obs.shape[0])
+        n, dev = noisy_next_obs.shape[0], noisy_next_obs.device
+        if isinstance(sigma, torch.Tensor):
+            sigma = sigma.to(device=dev, dtype=torch.float32).expand(n)
+        else:  # a fill on the device: a copy from the host would wait for the stream
+            sigma = torch.full((n,), sigma, dtype=torch.float32, device=dev)
         cs = self.compute_conditioners(sigma)
         model_output = self.compute_model_output(noisy_next_obs, obs, act, cs, obs_features)
         return self.wrap_model_output(noisy_next_obs, model_output, cs)

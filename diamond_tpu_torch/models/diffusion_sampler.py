@@ -1,8 +1,12 @@
-"""Karras-schedule diffusion sampler, Euler / Heun with optional churn
-(diamond_tpu/models/diffusion_sampler.py; int8 calibration is not part of the port).
+"""Karras-schedule diffusion sampler, Euler / Heun with optional churn, and the
+calibration of the static int8 rollout (diamond_tpu/models/diffusion_sampler.py).
 
 The initial latent is a *standard normal* draw, not scaled by sigma_max, and each step
 denoises at sigma, not sigma_hat, even with churn (reference behaviour).
+
+The int8 gate is structural (ops/quant.py): ``sample`` runs inside the int8 scope iff
+the denoiser holds a calibrated collection (``calibrate``), so an uncalibrated denoiser
+samples exactly as before and nothing outside the sampler is ever quantized.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import numpy as np
 import torch
 
 from ..config import DiffusionSamplerConfig
+from ..ops import quant
 from .denoiser import Denoiser
 
 
@@ -51,6 +56,35 @@ class DiffusionSampler:
         replaces the initial N(0, 1) latent and ``churn_noise`` the N(0, 1) draws of the
         churn steps (one per step with gamma > 0); what is not given is drawn from
         ``generator``. Returns the sampled frame (B, H, W, C)."""
+        enabled = quant.calibrating() or quant.has_collection(self.denoiser.inner_model)
+        with quant.int8_scope(enabled):
+            return self._sample(prev_obs, prev_act, x_init, churn_noise, generator)
+
+    @torch.no_grad()
+    def calibrate(self, prev_obs: torch.Tensor, prev_act: torch.Tensor, sites=None,
+                  x_init: Optional[torch.Tensor] = None,
+                  churn_noise: Optional[Sequence[torch.Tensor]] = None,
+                  generator: Optional[torch.Generator] = None) -> dict:
+        """Observe every site's input range over one sampling pass and install the
+        "quant" collection in the denoiser (a stale one is dropped first); returns it.
+        The ranges are max-merged over the sigma steps. ``sites``: which site kinds
+        quantize (``quant.parse_sites``; config ``int8_sites``); the others keep their
+        unquantized path. A selection that matches nothing leaves the denoiser
+        unquantized and returns {}. Call with representative conditioning frames (the
+        live rollout buffers); the draws are injectable as in ``sample``."""
+        sites = quant.parse_sites(sites)
+        net = self.denoiser.inner_model
+        quant.strip(net)
+        registry: dict = {}
+        with quant.calibration_scope(registry, net):
+            self.sample(prev_obs, prev_act, x_init, churn_noise, generator)
+        if not registry:
+            raise RuntimeError("calibration saw no quantizable sites")
+        coll = quant.registry_to_collection(registry, sites)
+        quant.install(net, coll)
+        return coll
+
+    def _sample(self, prev_obs, prev_act, x_init, churn_noise, generator) -> torch.Tensor:
         cfg = self.cfg
         b, t, h, w, c = prev_obs.shape
         prev_obs = prev_obs.movedim(1, 3).reshape(b, h, w, t * c)  # frame-major channels

@@ -5,6 +5,9 @@ Inputs are NHWC; the conditioning frames are stacked channelwise frame-major, th
 noisy next frame. ``obs_features`` is the conv_in contribution of the conditioning
 channels, computed once per sampled frame (``compute_obs_features``) and shared by every
 sigma step: conv(concat(a, b), K) = conv(a, K[..a..]) + conv(b, K[..b..]) + bias.
+That split conv goes around the ``conv_in`` module, so in the sampler ``conv_in`` is never
+calibrated and never quantized: it stays on the bf16/f32 kernel even with every int8
+site selected, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch.nn.functional as F
 
 from ..config import InnerModelConfig
 from ..ops import conv3x3
-from .blocks import Conv3x3, Embed, FourierFeatures, GroupNorm, QDense, UNet
+from .blocks import Conv3x3, Embed, FourierFeatures, GroupNorm, QDense, UNet, norm_silu_conv
 
 
 class InnerModel(nn.Module):
@@ -58,6 +61,5 @@ class InnerModel(nn.Module):
                         self._conv_in_kernel(split, self.conv_in.kernel.shape[2]))
             x = x + obs_features.to(self.dtype) + self.conv_in.bias.to(self.dtype)
         x = self.unet(x, cond)
-        x = self.norm_out(x)
-        x = self.conv_out(x)
+        x = norm_silu_conv(self.norm_out, self.conv_out, x)
         return x.float()

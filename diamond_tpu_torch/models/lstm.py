@@ -4,6 +4,10 @@ torch gate order (i, f, g, o), separate ``bias_ih``/``bias_hh``, weights stored 
 and (H, 4H). Init: xavier-uniform input weights, orthogonal recurrent weights, zero
 biases except forget-gate bias 1. The carry stays float32; the gate matmuls and
 nonlinearities run in ``dtype``.
+
+The cell is the int8 "lstm" site (ops/quant.py): its input-side scales are recorded by
+``LSTM`` over the whole sequence, and the hidden side uses the static bound |h| < 1
+(h = o * tanh(c) with o in (0, 1)), so it needs no calibration.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ from typing import Tuple
 
 import torch
 import torch.nn as nn
+
+from ..ops import quant
 
 Carry = Tuple[torch.Tensor, torch.Tensor]
 
@@ -28,6 +34,7 @@ class LSTMCell(nn.Module):
         self.bias_ih = nn.Parameter(torch.empty(4 * hidden_dim))
         self.bias_hh = nn.Parameter(torch.empty(4 * hidden_dim))
         self.hidden_dim, self.dtype = hidden_dim, dtype
+        quant.add_site_buffers(self)
 
     def reset_parameters(self, g: torch.Generator) -> None:
         fan_in, fan_out = self.weight_ih.shape
@@ -44,8 +51,14 @@ class LSTMCell(nn.Module):
     def forward(self, carry: Carry, x: torch.Tensor) -> Tuple[Carry, torch.Tensor]:
         hx, cx = carry
         dt = self.dtype
-        gates = (x.to(dt) @ self.weight_ih.to(dt) + hx.to(dt) @ self.weight_hh.to(dt)
-                 + (self.bias_ih + self.bias_hh).to(dt))
+        if quant.quantized(self):
+            h_max = torch.ones(self.hidden_dim, device=hx.device)
+            gates = (quant.matmul_q8_static(x, self.weight_ih, self.act_scale)
+                     + quant.matmul_q8_static(hx, self.weight_hh, h_max)
+                     + (self.bias_ih + self.bias_hh)).to(dt)
+        else:
+            gates = (x.to(dt) @ self.weight_ih.to(dt) + hx.to(dt) @ self.weight_hh.to(dt)
+                     + (self.bias_ih + self.bias_hh).to(dt))
         i, f, g, o = gates.chunk(4, dim=-1)
         i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
         g = torch.tanh(g)
@@ -64,6 +77,8 @@ class LSTM(nn.Module):
         self.cell = LSTMCell(in_features, hidden_dim, dtype)
 
     def forward(self, xs: torch.Tensor, carry: Carry) -> Tuple[torch.Tensor, Carry]:
+        if quant.recording():  # the cell's input range over the whole sequence
+            quant.record(self.cell, xs.float().abs().amax(dim=(0, 1)), "lstm")
         hs = []
         for t in range(xs.shape[1]):
             carry, h = self.cell(carry, xs[:, t])

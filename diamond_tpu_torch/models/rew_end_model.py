@@ -2,6 +2,10 @@
 (diamond_tpu/models/rew_end_model.py). Conv encoder over concat(obs, next_obs),
 FiLM-conditioned on an action embedding, flattened HWC into an LSTM over time, two-layer
 head -> 5 logits split 3/2. The training loss comes with the training slice.
+
+``calibrate`` installs the static int8 collection (ops/quant.py); the rollout's rew/end
+step (envs/world_model_env.py) is the only caller that enters the int8 scope, so the
+IC burn-in and everything else stay unquantized.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import RewEndModelConfig
+from ..ops import quant
 from .blocks import Conv3x3, Downsample, Embed, QDense, ResBlocks
 from .lstm import LSTM, Carry
 
@@ -92,3 +97,21 @@ class RewEndModel:
         if carry is None:
             carry = self.initial_carry(obs.shape[0], obs.device)
         return self.net(obs, act, next_obs, carry)
+
+    @torch.no_grad()
+    def calibrate(self, obs: torch.Tensor, act: torch.Tensor, next_obs: torch.Tensor,
+                  sites=None) -> dict:
+        """Observe every site's input range over one ``predict_rew_end`` and install the
+        "quant" collection in the net (a stale one is dropped first); returns it, {} when
+        ``sites`` (``quant.parse_sites``) matches nothing. The LSTM's input range is taken
+        over the whole sequence."""
+        sites = quant.parse_sites(sites)
+        quant.strip(self.net)
+        registry: dict = {}
+        with quant.int8_scope(True), quant.calibration_scope(registry, self.net):
+            self.predict_rew_end(obs, act, next_obs)
+        if not registry:
+            raise RuntimeError("calibration saw no quantizable sites")
+        coll = quant.registry_to_collection(registry, sites)
+        quant.install(self.net, coll)
+        return coll

@@ -21,13 +21,13 @@ import torch
 from .. import kernels
 
 GN_EPS = 1e-5
-_MAX_THREADS = 256   # kernels/csrc/fused_norms.cu kMaxThreads
-_MAX_GROUPS = 64     # kernels/csrc/fused_norms.cu kMaxGroups
+_MAX_THREADS = 256   # kernels/csrc/gn_common.cuh kMaxThreads
+_MAX_GROUPS = 64     # kernels/csrc/gn_common.cuh kMaxGroups
 _MAX_SPANS = 64
 _ITERS_PER_SPAN = 4  # steps of threads * V elements per block and pass
 
 
-def _group_moments(x: torch.Tensor, num_groups: int):
+def _group_moments(x: torch.Tensor, num_groups: int, eps: float = GN_EPS):
     """Per-channel broadcastable (mean, 1/std) of each group: diamond_tpu's
     ``_group_norm`` statistics (per-channel sums first, then groups)."""
     n, h, w, c = x.shape
@@ -38,7 +38,7 @@ def _group_moments(x: torch.Tensor, num_groups: int):
     cnt = float(h * w * gs)
     mean_g = s.reshape(n, num_groups, gs).sum(-1) / cnt
     var_g = sq.reshape(n, num_groups, gs).sum(-1) / cnt - mean_g * mean_g
-    inv_g = torch.rsqrt(var_g + GN_EPS)
+    inv_g = torch.rsqrt(var_g + eps)
     mean_c = mean_g[:, :, None].expand(n, num_groups, gs).reshape(n, 1, 1, c)
     inv_c = inv_g[:, :, None].expand(n, num_groups, gs).reshape(n, 1, 1, c)
     return x32, mean_c, inv_c

@@ -41,8 +41,9 @@ def test_default_config_equals_trainer_yaml():
     assert asdict(wm.diffusion_sampler) == dict(cfg.world_model_env.diffusion_sampler)
     assert tc.IMG_SIZE == cfg.env.train.size
     rt = tc.RuntimeConfig()
-    assert (rt.compute_dtype, rt.pool_policy_feats) == \
-        (cfg.tpu.compute_dtype, cfg.tpu.pool_policy_feats)
+    assert (rt.compute_dtype, rt.pool_policy_feats, rt.int8_rollout, rt.int8_sites) == \
+        (cfg.tpu.compute_dtype, cfg.tpu.pool_policy_feats, cfg.tpu.int8_rollout,
+         cfg.tpu.int8_sites)
 
 
 SMALL = dict(
@@ -76,7 +77,7 @@ def test_weight_bridge_round_trip():
     models."""
     ja = JAgent(_jax_agent_config(SMALL))
     variables = jax.jit(lambda k: ja.init(k, img_size=16).variables)(jax.random.PRNGKey(0))
-    port = Agent(_port_agent_config(SMALL))
+    port = Agent(_port_agent_config(SMALL), device="cpu")
     for name, net in port.nets.items():
         v = jax.tree_util.tree_map(np.asarray, variables[name])
         load_variables(net, v)
@@ -93,7 +94,7 @@ def test_full_size_layout_and_init_match_jax():
     cfg = load_config("trainer")
     ja = JAgent(JAgentConfig.from_cfg(cfg.agent, 4))
     shapes = jax.eval_shape(lambda k: JAgent.init(ja, k).variables, jax.random.PRNGKey(0))
-    port = Agent(tc.AgentConfig(), generator=torch.Generator().manual_seed(0))
+    port = Agent(tc.AgentConfig(), device="cpu", generator=torch.Generator().manual_seed(0))
     for name, net in port.nets.items():
         ref = {k: tuple(v.shape) for k, v in
                variables_to_state_dict(jax.tree_util.tree_map(
@@ -138,7 +139,7 @@ def test_reference_checkpoint_reaches_the_port():
         prefix = f"{name}.inner_model" if name == "denoiser" else name
         flat.update({f"{prefix}.{k}": v.numpy() for k, v in sd.items()})
     variables = convert_reference_state_dict(flat, img_size=16, ac_down=ac["down"])
-    port = Agent(_port_agent_config(SMALL))
+    port = Agent(_port_agent_config(SMALL), device="cpu")
     for name, net in port.nets.items():
         load_variables(net, variables[name])
 
@@ -170,7 +171,7 @@ def test_reference_checkpoint_reaches_the_port():
 
 def test_port_imports_no_jax_and_no_yaml():
     modules = ["diamond_tpu_torch", "diamond_tpu_torch.config", "diamond_tpu_torch.kernels",
-               "diamond_tpu_torch.ops", "diamond_tpu_torch.models",
+               "diamond_tpu_torch.ops", "diamond_tpu_torch.ops.quant", "diamond_tpu_torch.models",
                "diamond_tpu_torch.data.episode", "diamond_tpu_torch.envs.world_model_env",
                "diamond_tpu_torch.interop.jax_vars"]
     code = ("import importlib, sys\n"
