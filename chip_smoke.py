@@ -27,7 +27,9 @@ result line):
      the frame difference in grid levels (a figure, not a check);
   7. each kernel against its plain PyTorch version at every shape and dtype its path
      sent it, and in f32 (TF32 off), with device times, bounds and library yardsticks;
-     K4's per-sample epilogue at the int8 path's norm shapes;
+     for the 3x3 convs also the ratio to cuDNN's bf16 conv, the share of the bound and
+     the blocks of the launch plan; K4's per-sample epilogue at the int8 path's norm
+     shapes;
   8. the trajectories' sanity, and small full-width rollouts in f32 on the card against
      the same rollouts through the plain versions on the CPU, bf16 path and int8 path.
 The last line is {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -224,7 +226,9 @@ def make_inputs(name, sig, dtype, gen):
                            dtype=torch.int8)
         ws = torch.rand(cout, generator=gen, device=dev) * 1e-3 + 1e-4
         ss = torch.rand((shape[0], 1), generator=gen, device=dev) + 0.1 if has_ss else None
-        return (x, wq, ws, am, 0.1 * rnd(cout) if has_bias else None, stride, dtype, ss)
+        # the K-major weight copy last, made once as the int8 sites make it at install
+        return (x, wq, ws, am, 0.1 * rnd(cout) if has_bias else None, stride, dtype, ss,
+                ops.kmajor_weights(wq))
     shape, _, *silu = sig
     c = shape[-1]
     x = (2 * rnd(*shape) + 0.5).to(dtype)
@@ -250,12 +254,31 @@ def code_err(q, ref) -> float:
     return float(d.max())
 
 
+def plain_args(name, args):
+    """The arguments of the plain version: K5's take no K-major weight copy."""
+    return args[:8] if name == "conv3x3_int8" else args
+
+
+def conv_blocks(name, args) -> int:
+    """The blocks a 3x3 conv kernel launches on the rollout's inputs (K3 bf16, K5): its
+    launch plan's grid."""
+    import torch
+    from diamond_tpu_torch.ops import conv_plan
+
+    x = args[0]
+    b, h, w, cin = x.shape
+    if name == "conv3x3_int8":
+        return conv_plan.k5_plan(b, h, w, cin, args[1].shape[-1], args[5],
+                                 x.dtype == torch.int8).grid
+    return conv_plan.k3_plan(b, h, w, cin, args[1].shape[-1], args[3]).grid
+
+
 def compare_one(name, kernel, plain, args, dt_name):
     """Run kernel and plain version on args; check; return the max abs error."""
     import torch
     from diamond_tpu_torch import ops
 
-    y, ref = kernel(*args), plain(*args)
+    y, ref = kernel(*args), plain(*plain_args(name, args))
     torch.cuda.synchronize()
     if name in ("adagn_silu_q8", "groupnorm_silu_q8"):
         # the static epilogue equals quantize(K1/K2 kernel output) code for code
@@ -299,13 +322,13 @@ def compare_kernels(shapes, launches, num_rollouts):
                 e = compare_one(name, kernel, plain, args, dt_name)
                 err[dt_name] = max(err[dt_name], e)
                 t_k = cuda_time_ms(lambda: kernel(*args))
-                t_p = cuda_time_ms(lambda: plain(*args))
+                t_p = cuda_time_ms(lambda: plain(*plain_args(name, args)))
                 row = dict(kernel=name, signature=str(sig), dtype=dt_name,
                            calls_per_rollout=count / num_rollouts, max_abs_err=e, ms=t_k,
                            plain_ms=t_p)
                 if as_run:  # the rollout's dtype: weight by its call count
                     w = count / num_rollouts
-                    t_b, t_o = bound(name, args)
+                    t_b, t_o = bound(name, plain_args(name, args))
                     row.update(bytes_ms=t_b, ops_ms=t_o, bound_ms=max(t_b, t_o))
                     tot["ms"] += w * t_k
                     tot["plain_ms"] += w * t_p
@@ -325,6 +348,10 @@ def compare_kernels(shapes, launches, num_rollouts):
                         row["cudnn_bf16_ms"] = cuda_time_ms(
                             lambda: cudnn_bf16_conv(xb, wb, bias, stride))
                         tot["cudnn_bf16_ms"] += w * row["cudnn_bf16_ms"]
+                    if name.startswith("conv"):  # ratio to cuDNN, share of the bound, blocks
+                        row["vs_library"] = t_k / row.get("library_ms", row.get("cudnn_bf16_ms"))
+                        row["bound_share"] = row["bound_ms"] / t_k
+                        row["blocks"] = conv_blocks(name, args)
                 if name == "adagn_silu_q8":  # K4's per-sample epilogue at the same shapes
                     x, ss, g, _ = args
                     c = x.shape[-1]
@@ -347,8 +374,9 @@ def compare_kernels(shapes, launches, num_rollouts):
                 details.append(row)
                 log(f"[compare] {name} {sig} {dt_name}: err {e:.3g} kernel {t_k:.4f} ms plain "
                     f"{t_p:.4f} ms" + "".join(f" {k} {row[k]:.4f}" for k in (
-                        "bound_ms", "library_ms", "cudnn_bf16_ms", "per_sample_ms")
-                        if k in row))
+                        "bound_ms", "library_ms", "cudnn_bf16_ms", "per_sample_ms",
+                        "vs_library", "bound_share") if k in row)
+                    + (f" blocks {row['blocks']}" if "blocks" in row else ""))
         entry = dict(name=name, route="cuda", source=source, replaces=replaces,
                      launches=launches[path][name], max_abs_err=err["bfloat16"],
                      ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],

@@ -33,17 +33,18 @@ _SIGNATURES = {
     "adagn_silu_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _L, _I, _I, _P),
     # x, scale, bias, y, B, HW, C, G, silu, partials, S, span, threads, dtype, stream
     "groupnorm_silu_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _L, _I, _I, _P),
-    # x, w, bias, y, B, H, W, Cin, Cout, stride, dtype, stream
-    "conv3x3_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, bias, y, plan (ops/conv_plan.py), stream
+    "conv3x3_bf16_fwd": (_P, _P, _P, _P, _P, _P),
+    # x, w, bias, y, B, H, W, Cin, Cout, stride, stream
+    "conv3x3_f32_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, mean, inv, gamma, beta, q, scale, amax, B, HW, C, S, span, threads, dtype, stream
     "norm_affine_silu_q8_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P),
     # x, scale_shift, act_max, q, B, HW, C, G, partials, S, span, threads, dtype, stream
     "adagn_silu_q8_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _L, _I, _I, _P),
     # x, scale, bias, act_max, q, B, HW, C, G, partials, S, span, threads, dtype, stream
     "groupnorm_silu_q8_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _L, _I, _I, _P),
-    # x, x_dtype, act_max, w_q, w_scale, sample_scale, bias, y, out_dtype, B, H, W, Cin,
-    # Cout, stride, stream
-    "conv3x3_q8_fwd": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, x_dtype, act_max, w_k, w_scale, sample_scale, bias, y, out_dtype, plan, stream
+    "conv3x3_q8_fwd": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

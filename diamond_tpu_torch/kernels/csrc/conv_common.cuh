@@ -1,5 +1,6 @@
-// The implicit-GEMM view of a 3x3 SAME convolution over NHWC activations, shared by
-// conv3x3.cu (K3) and conv3x3_q8.cu (K5):
+// The implicit-GEMM view of a 3x3 SAME convolution over NHWC activations, with A gathered
+// from x per K-step: the f32 CUDA-core kernel of conv3x3.cu (K3's parity path). The
+// tensor-core kernels read A from a halo tile instead (conv_halo.cuh).
 //   M = B * Ho * Wo output pixels, N = Cout, K = 9 * Cin in (ky, kx, ci) order,
 //   A[m, k] = x[b, oy*s - 1 + ky, ox*s - 1 + kx, ci] (zero outside the image),
 //   B = the HWIO kernel viewed as (9 * Cin, Cout).

@@ -14,6 +14,17 @@ __device__ __forceinline__ signed char quantize_q8(float v, float s) {
   return static_cast<signed char>(__float2int_rn(r));
 }
 
+// The same code from the reciprocal r = 1/s (rounded), one multiply instead of a
+// division: t = v * r is within |v/s| * 1.8e-7 of the correctly rounded quotient, so for
+// |t| < 256 its rounding to an integer can differ only where t lies within 4.6e-5 of a
+// half-integer; there the true division decides. For |t| >= 256 both clip to +-127.
+__device__ __forceinline__ signed char quantize_q8_rcp(float v, float s, float r) {
+  const float t = __fmul_rn(v, r);
+  const bool near_tie = fabsf(t) < 256.f && fabsf(fabsf(t - truncf(t)) - 0.5f) < 1e-4f;
+  const float q = rintf(near_tie ? __fdiv_rn(v, s) : t);
+  return static_cast<signed char>(__float2int_rn(fminf(fmaxf(q, -127.f), 127.f)));
+}
+
 // The static per-input-channel scale of diamond_tpu/ops/quant.py:
 // s_c = max(act_max, 1e-8) * ACT_SCALE_HEADROOM (1.05) / 127, in f32 in that order.
 __device__ __forceinline__ float static_scale(float act_max) {

@@ -92,7 +92,8 @@ class Conv3x3(nn.Module):
         scales (a quantizing norm's output)."""
         if quant.quantized(self):
             return quant.conv3x3_q8_static(x, self.kernel, self.act_scale, self.strides,
-                                           self.w_q, self.w_scale, self.bias, self.dtype)
+                                           self.w_q, self.w_scale, self.bias, self.dtype,
+                                           self.w_k)
         if quant.recording():
             quant.record(self, x.float().abs().amax(dim=(0, 1, 2)), "conv3x3", w=self.kernel)
         return conv3x3(x.to(self.dtype).contiguous(), self.kernel.to(self.dtype).contiguous(),

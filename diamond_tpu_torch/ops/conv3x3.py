@@ -3,9 +3,13 @@
 Counterpart of diamond_tpu/ops/conv3x3.py::conv3x3_im2col (Pallas TPU kernel, stride 1,
 no bias) and of the ``lax.conv_general_dilated`` calls the JAX package makes for every
 3x3 conv (stride 2 included, padding ((1, 1), (1, 1))). On a CUDA tensor ``conv3x3``
-launches the hand-written implicit-GEMM kernel in ``kernels/csrc/conv3x3.cu`` (f32
+launches the hand-written implicit-GEMM kernels in ``kernels/csrc/conv3x3.cu`` (f32
 accumulation, the bias added to the f32 sum, one rounding to x's dtype); on a CPU tensor
 it runs ``conv3x3_plain``, the same contract through ``F.conv2d`` in float32.
+
+bf16 runs the halo-tile wgmma kernel (``kernels/csrc/conv_halo.cuh``) on the launch plan
+of ``conv_plan.k3_plan`` for every shape, Cin = 3, 6 and 12 included (zero-padded to 16
+channels in the kernel); f32 (the parity runs) runs the CUDA-core kernel.
 
 ``conv3x3.launches`` counts kernel launches and ``conv3x3.shapes`` the call signatures.
 """
@@ -19,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from .conv_plan import k3_plan
 
 
 def conv3x3_plain(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None,
@@ -56,10 +61,17 @@ def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor] 
         bias = bias.float().contiguous()
     y = torch.empty((b, (h - 1) // stride + 1, (w - 1) // stride + 1, cout),
                     device=x.device, dtype=x.dtype)
-    kernels.check(kernels.lib().conv3x3_fwd(
-        x.data_ptr(), kernel.data_ptr(), None if bias is None else bias.data_ptr(),
-        y.data_ptr(), b, h, w, cin, cout, stride, code,
-        torch.cuda.current_stream(x.device).cuda_stream), "conv3x3")
+    if code == 1 and cout % 8:  # the kernel copies weight rows in 16-byte pieces
+        kernel = F.pad(kernel, (0, -cout % 8))
+    ptrs = (x.data_ptr(), kernel.data_ptr(), None if bias is None else bias.data_ptr(),
+            y.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if code == 1:
+        code = kernels.lib().conv3x3_bf16_fwd(
+            *ptrs, k3_plan(b, h, w, cin, cout, stride).c_ints, stream)
+    else:
+        code = kernels.lib().conv3x3_f32_fwd(*ptrs, b, h, w, cin, cout, stride, stream)
+    kernels.check(code, "conv3x3")
     conv3x3.launches += 1
     conv3x3.shapes[(tuple(x.shape), cout, stride, bias is not None, str(x.dtype))] += 1
     return y

@@ -8,6 +8,11 @@ with the int8 sums taken exactly in float64.
 
 The A operand is int8 codes, or bf16/f32 values quantized as they are loaded with the
 static scale s_c = max(act_max, 1e-8) * 1.05 / 127 of their channel (``quantize_static``).
+Every shape runs the halo-tile wgmma kernel (``kernels/csrc/conv_halo.cuh``) on the launch
+plan of ``conv_plan.k5_plan``; Cin that is not a multiple of 32 is zero-padded in it. The
+kernel reads the weights as ``kmajor_weights(w_q)``, which the int8 sites make once when
+their collection is installed (``quant.install``, the ``w_k`` buffer) and the wrapper
+otherwise makes per call.
 The epilogue is f32(acc) * w_scale[n] (times sample_scale[b] for a QTensor), then in
 ``out_dtype`` plus the bias rounded to ``out_dtype``.
 
@@ -24,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from .conv_plan import channels_padded, k5_plan
 
 # Calibration records the exact observed max; the run-time distribution gets a little
 # room (diamond_tpu/ops/quant.py; kernels/csrc/q8_common.cuh static_scale).
@@ -50,6 +56,17 @@ def quantize_static(x: torch.Tensor, act_max: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x.float() / static_scale(act_max)), -127, 127).to(torch.int8)
 
 
+def kmajor_weights(w_q: torch.Tensor) -> torch.Tensor:
+    """The K-major copy of w_q (3, 3, Cin, Cout) the int8 wgmma reads: row n holds
+    w_q[ky, kx, ci, n] at column (3 ky + kx) * cpad + ci, with Cin zero-padded to cpad
+    (one s8 wgmma K step, 32) and the rows to a multiple of 8; (round8(Cout), 9 * cpad)
+    int8, contiguous."""
+    cin, cout = w_q.shape[2], w_q.shape[3]
+    wk = F.pad(w_q.permute(3, 0, 1, 2), (0, channels_padded(cin, 1) - cin))
+    wk = wk.reshape(cout, -1)
+    return F.pad(wk, (0, 0, 0, -cout % 8)).contiguous()
+
+
 def conv3x3_int8_plain(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                        act_max: Optional[torch.Tensor] = None,
                        bias: Optional[torch.Tensor] = None, stride: int = 1,
@@ -73,8 +90,10 @@ def conv3x3_int8_plain(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor
 def conv3x3_int8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                  act_max: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
                  stride: int = 1, out_dtype: torch.dtype = torch.float32,
-                 sample_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The int8 3x3 SAME conv of ``conv3x3_int8_plain``'s contract."""
+                 sample_scale: Optional[torch.Tensor] = None,
+                 w_k: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The int8 3x3 SAME conv of ``conv3x3_int8_plain``'s contract; ``w_k``:
+    ``kmajor_weights(w_q)`` where the caller keeps it (else made here)."""
     if x.device.type == "cpu":
         return conv3x3_int8_plain(x, w_q, w_scale, act_max, bias, stride, out_dtype,
                                   sample_scale)
@@ -90,9 +109,15 @@ def conv3x3_int8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     if stride not in (1, 2):
         raise ValueError(f"conv3x3_int8: stride must be 1 or 2, got {stride}")
     cout = w_q.shape[-1]
-    x, w_q = x.contiguous(), w_q.contiguous()
-    if x.data_ptr() % 16 or w_q.data_ptr() % 16:
-        raise ValueError("conv3x3_int8: x and w_q must be 16-byte aligned")
+    x = x.contiguous()
+    if w_k is None:
+        w_k = kmajor_weights(w_q)
+    k_shape = (-(-cout // 8) * 8, 9 * channels_padded(cin, 1))
+    if (tuple(w_k.shape) != k_shape or w_k.dtype != torch.int8 or w_k.device != x.device
+            or not w_k.is_contiguous()):
+        raise ValueError(f"conv3x3_int8: w_k must be int8 {k_shape} on {x.device}")
+    if x.data_ptr() % 16 or w_k.data_ptr() % 16:
+        raise ValueError("conv3x3_int8: x and w_k must be 16-byte aligned")
     if x.dtype != torch.int8:
         if act_max is None or act_max.shape != (cin,):
             raise ValueError(f"conv3x3_int8: a float x needs act_max ({cin},)")
@@ -113,9 +138,10 @@ def conv3x3_int8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                     dtype=out_dtype)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     kernels.check(kernels.lib().conv3x3_q8_fwd(
-        x.data_ptr(), _X_CODES[x.dtype], ptr(act_max), w_q.data_ptr(), w_scale.data_ptr(),
-        ptr(sample_scale), ptr(bias), y.data_ptr(), _OUT_CODES[out_dtype], b, h, w, cin, cout,
-        stride, torch.cuda.current_stream(x.device).cuda_stream), "conv3x3_int8")
+        x.data_ptr(), _X_CODES[x.dtype], ptr(act_max), w_k.data_ptr(), w_scale.data_ptr(),
+        ptr(sample_scale), ptr(bias), y.data_ptr(), _OUT_CODES[out_dtype],
+        k5_plan(b, h, w, cin, cout, stride, x.dtype == torch.int8).c_ints,
+        torch.cuda.current_stream(x.device).cuda_stream), "conv3x3_int8")
     conv3x3_int8.launches += 1
     conv3x3_int8.shapes[(tuple(x.shape), str(x.dtype), cout, stride, bias is not None,
                          sample_scale is not None, str(out_dtype))] += 1

@@ -33,11 +33,14 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from .conv3x3_q8 import (ACT_SCALE_HEADROOM, conv3x3_int8, quantize_static, static_scale,
-                         true_div)
+from .conv3x3_q8 import (ACT_SCALE_HEADROOM, conv3x3_int8, kmajor_weights, quantize_static,
+                         static_scale, true_div)
 
 SITES_ALL = ("conv3x3", "conv1x1", "dense", "lstm")
 LEAVES = ("act_scale", "w_q", "w_scale")
+# Made from the leaves by ``install``, never part of the collection: a 3x3 site's K-major
+# weight copy, which the int8 conv kernel reads (conv3x3_q8.kmajor_weights).
+DERIVED = ("w_k",)
 
 _ACTIVE = contextvars.ContextVar("diamond_tpu_torch_int8_active", default=False)
 _CALIBRATING = contextvars.ContextVar("diamond_tpu_torch_int8_calibrating", default=None)
@@ -142,17 +145,19 @@ def conv3x3_q8_static(x: torch.Tensor, w: torch.Tensor, act_max: torch.Tensor,
                       strides: int = 1, w_q: Optional[torch.Tensor] = None,
                       w_scale: Optional[torch.Tensor] = None,
                       bias: Optional[torch.Tensor] = None,
-                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                      out_dtype: torch.dtype = torch.float32,
+                      w_k: Optional[torch.Tensor] = None) -> torch.Tensor:
     """3x3 SAME conv on int8 values with static per-input-channel activation scales.
 
     x: (B, H, W, Cin) float, or int8 codes already quantized with these scales (the
     output of a quantizing norm); w: (3, 3, Cin, Cout) f32; act_max: (Cin,) f32 from
-    calibration. ``w_q``/``w_scale``: the calibration-time fold (else folded here).
+    calibration. ``w_q``/``w_scale``: the calibration-time fold (else folded here);
+    ``w_k``: the kernel's K-major copy of that ``w_q`` (``install`` makes it).
     Returns f32(conv) * w_scale in ``out_dtype``, plus ``bias`` added in ``out_dtype``
     (the JAX package's order: quant.py:187, blocks.py:202, :210)."""
     if w_q is None or w_scale is None:
-        w_q, w_scale = fold_quantize_weight(w, act_max)
-    return conv3x3_int8(x, w_q, w_scale, act_max, bias, strides, out_dtype)
+        w_q, w_scale, w_k = *fold_quantize_weight(w, act_max), None
+    return conv3x3_int8(x, w_q, w_scale, act_max, bias, strides, out_dtype, w_k=w_k)
 
 
 def _int_mm_takes(m: int, k: int, n: int) -> bool:
@@ -187,7 +192,7 @@ def matmul_q8_static(x: torch.Tensor, w: torch.Tensor, act_max: torch.Tensor,
 
 def add_site_buffers(module: nn.Module) -> None:
     """Give a quantizable module its (empty, non-persistent) collection buffers."""
-    for name in LEAVES:
+    for name in LEAVES + DERIVED:
         module.register_buffer(name, None, persistent=False)
 
 
@@ -198,7 +203,7 @@ def _sites(root: nn.Module):
 def strip(root: nn.Module) -> None:
     """Drop every site's collection: the tree runs unquantized again."""
     for _, m in _sites(root):
-        for name in LEAVES:
+        for name in LEAVES + DERIVED:
             setattr(m, name, None)
 
 
@@ -219,6 +224,8 @@ def install(root: nn.Module, collection: dict) -> None:
                 dtype = torch.int8 if name == "w_q" else torch.float32
                 t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
                 setattr(m, name, t.to(device=dev, dtype=dtype).contiguous())
+            if m.w_q is not None and m.w_q.dim() == 4:  # a 3x3 site
+                m.w_k = kmajor_weights(m.w_q)
         for k, v in node.items():
             if isinstance(v, dict):
                 walk(v, (*path, k))

@@ -8,6 +8,23 @@ This file imports no jax, so it also runs where the JAX package cannot be import
 import pytest
 import torch
 
+# K3/K5 at every 3x3 conv signature class of the rollout, (B, H, W, Cin, Cout, stride,
+# bias): the 8x8 levels at B = 32, where Cout is split across blocks, the others at small
+# B; then the ragged cases: odd H = 9 with stride 2, M not a multiple of a tile (5x5,
+# 33x33), B = 1, rows wider than a block (W = 150), Cout = 3, 24 and 32, Cin = 3, 6, 12
+# and 16, Cin = 128 at 8x8.
+CONV_SHAPES = [
+    (4, 64, 64, 64, 64, 1, True), (2, 64, 64, 128, 64, 1, True), (32, 8, 8, 64, 64, 1, True),
+    (4, 32, 32, 64, 64, 1, True), (4, 64, 64, 64, 3, 1, True), (4, 32, 32, 128, 64, 1, True),
+    (8, 16, 16, 64, 64, 1, True), (32, 8, 8, 128, 64, 1, True), (8, 16, 16, 128, 64, 1, True),
+    (4, 64, 64, 32, 32, 1, True), (4, 64, 64, 64, 64, 2, True), (4, 32, 32, 64, 64, 2, True),
+    (8, 16, 16, 64, 64, 2, True), (4, 64, 64, 6, 32, 1, True), (32, 8, 8, 32, 32, 1, True),
+    (4, 32, 32, 32, 32, 1, True), (4, 64, 64, 32, 32, 2, True), (4, 64, 64, 12, 64, 1, False),
+    (4, 64, 64, 3, 64, 1, False), (4, 64, 64, 3, 32, 1, True), (4, 16, 16, 32, 64, 1, True),
+    (2, 9, 9, 32, 24, 2, True), (2, 9, 9, 16, 24, 2, True), (3, 5, 5, 16, 32, 1, True),
+    (2, 33, 33, 64, 3, 1, True), (1, 64, 64, 64, 64, 1, True), (1, 4, 150, 16, 8, 1, False),
+    (1, 5, 7, 6, 3, 2, True), (2, 9, 9, 12, 32, 1, False), (2, 8, 8, 128, 64, 1, True)]
+
 from diamond_tpu_torch.ops import (QTensor, adagn_silu, adagn_silu_plain, adagn_silu_q8,
                                    adagn_silu_q8_plain, conv3x3, conv3x3_int8,
                                    conv3x3_int8_plain, conv3x3_plain, conv3x3_qtensor,
@@ -36,10 +53,8 @@ def test_cuda_kernels_match_plain_versions(dtype):
         scale = max(1.0, b.float().abs().max().item())
         assert (a.float() - b.float()).abs().max().item() <= tol * scale
 
-    for b, h, cin, cout, s, bias in [(4, 64, 64, 64, 1, True), (4, 64, 3, 64, 1, False),
-                                     (4, 64, 12, 64, 1, False), (4, 64, 64, 64, 2, True),
-                                     (4, 16, 128, 64, 1, True), (4, 64, 64, 3, 1, True)]:
-        x = torch.randn(b, h, h, cin, device="cuda", generator=g).to(dt)
+    for b, h, w, cin, cout, s, bias in CONV_SHAPES:
+        x = torch.randn(b, h, w, cin, device="cuda", generator=g).to(dt)
         k = (torch.randn(3, 3, cin, cout, device="cuda", generator=g) / (9 * cin) ** .5).to(dt)
         bb = torch.randn(cout, device="cuda", generator=g) if bias else None
         check(conv3x3(x, k, bb, s), conv3x3_plain(x, k, bb, s))
@@ -103,8 +118,8 @@ def test_q8_kernels_match_plain_versions(dtype):
     fuse a multiply-add the plain versions round twice); K4's per-sample epilogue within
     one code in 0.1 %, scales to rtol 1e-5; K5 equals its plain version exactly (int8
     sums are exact and every f32 step is the same IEEE operation), from int8, bf16 and
-    f32 inputs, every Cin and Cout class of the rollout, stride 1 and 2, with and
-    without bias, and with a QTensor's per-sample scale."""
+    f32 inputs, at every conv signature class of the rollout and the ragged cases
+    (CONV_SHAPES), with and without bias, and with a QTensor's per-sample scale."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     dt = getattr(torch, dtype)
@@ -130,11 +145,8 @@ def test_q8_kernels_match_plain_versions(dtype):
         torch.testing.assert_close(qt.scale, ref.scale, rtol=1e-5, atol=0)
         _codes_close(qt.q, ref.q)
 
-    for b, h, cin, cout, s, bias in [(4, 64, 64, 64, 1, True), (4, 64, 6, 32, 1, True),
-                                     (4, 64, 64, 64, 2, True), (4, 16, 128, 64, 1, True),
-                                     (4, 64, 64, 3, 1, True), (4, 8, 32, 32, 2, False),
-                                     (2, 9, 16, 24, 2, True)]:
-        x = rnd(b, h, h, cin).to(dt)
+    for b, h, w, cin, cout, s, bias in CONV_SHAPES:
+        x = rnd(b, h, w, cin).to(dt)
         am = x.float().abs().amax(dim=(0, 1, 2)) * 0.9
         w = rnd(3, 3, cin, cout) / (9 * cin) ** 0.5
         wq, ws = quant.fold_quantize_weight(w, am)
@@ -147,6 +159,29 @@ def test_q8_kernels_match_plain_versions(dtype):
         y, ref = conv3x3_qtensor(qx, w, s), conv3x3_qtensor(QTensor(qx.q.cpu(), qx.scale.cpu()),
                                                             w.cpu(), s)
         assert torch.equal(y.cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_k5_quantizes_near_rounding_ties_like_a_true_division():
+    """K5 quantizes a float x by a multiply with 1/s_c and falls back to the true division
+    near a rounding tie: on x = (k + 1/2) * s_c and its f32 neighbours, for every code k,
+    its output equals the plain version's, which divides truly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diamond_tpu_torch.ops.conv3x3_q8 import static_scale
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cin, cout = 32, 16
+    am = torch.rand(cin, device="cuda", generator=g) + 0.5
+    ties = (torch.arange(-130, 130, device="cuda").float() + 0.5)[:, None] * static_scale(am)
+    x = torch.stack([ties, torch.nextafter(ties, ties + 1), torch.nextafter(ties, ties - 1)])
+    x = x.reshape(3, 26, 10, cin).contiguous()
+    w = torch.randn(3, 3, cin, cout, device="cuda", generator=g) / (9 * cin) ** 0.5
+    wq, ws = quant.fold_quantize_weight(w, am)
+    for xin in (x, x.bfloat16()):
+        y = conv3x3_int8(xin, wq, ws, am, None, 1, torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(y, conv3x3_int8_plain(xin, wq, ws, am, None, 1, torch.float32))
 
 
 @pytest.mark.cuda
