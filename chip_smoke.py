@@ -27,9 +27,9 @@ result line):
      the frame difference in grid levels (a figure, not a check);
   7. each kernel against its plain PyTorch version at every shape and dtype its path
      sent it, and in f32 (TF32 off), with device times, bounds and library yardsticks;
-     for the 3x3 convs also the ratio to cuDNN's bf16 conv, the share of the bound and
-     the blocks of the launch plan; K4's per-sample epilogue at the int8 path's norm
-     shapes;
+     the share of the bound; for the 3x3 convs also the ratio to cuDNN's bf16 conv and
+     the blocks of the launch plan, for the norms the cluster size and blocks of theirs;
+     K4's per-sample epilogue at the int8 path's norm shapes;
   8. the trajectories' sanity, and small full-width rollouts in f32 on the card against
      the same rollouts through the plain versions on the CPU, bf16 path and int8 path.
 The last line is {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -159,14 +159,15 @@ def bound(name, args):
     x = args[0]
     n, es = x.numel(), x.element_size()
     b, c = x.shape[0], x.shape[-1]
-    if name in ("adagn_silu", "groupnorm_silu"):
+    small = sum(a.numel() * a.element_size() for a in args[1:] if isinstance(a, torch.Tensor))
+    if name in ("adagn_silu", "groupnorm_silu"):  # small: the FiLM rows or the affine
         silu = args[-1]
         ops = n * (3 + 4 + 4 * silu)
-        byts = 2 * n * es + (b * 2 * c * 4 if name == "adagn_silu" else 2 * c * 4)
+        byts = 2 * n * es + small
         kind = "f32_simt"
-    elif name in ("adagn_silu_q8", "groupnorm_silu_q8"):
+    elif name in ("adagn_silu_q8", "groupnorm_silu_q8"):  # small: also act_max
         ops = n * (3 + 4 + 4 + 4)
-        byts = n * es + n + (b * 2 * c * 4 if name == "adagn_silu_q8" else 2 * c * 4) + c * 4
+        byts = n * es + n + small
         kind = "f32_simt"
     elif name == "norm_affine_silu_q8":
         ops = n * (4 + 4 + 1 + 4)
@@ -234,7 +235,7 @@ def make_inputs(name, sig, dtype, gen):
     x = (2 * rnd(*shape) + 0.5).to(dtype)
     g = max(1, c // 32)
     if name in ("adagn_silu", "adagn_silu_q8"):
-        ss = 0.5 * rnd(shape[0], 2 * c)
+        ss = (0.5 * rnd(shape[0], 2 * c)).to(dtype)  # the FiLM linear's output dtype
         if name == "adagn_silu":
             return (x, ss, g, silu[0])
         am = ops.adagn_silu_plain(x, ss, g).float().abs().amax(dim=(0, 1, 2)) * 0.95
@@ -257,6 +258,16 @@ def code_err(q, ref) -> float:
 def plain_args(name, args):
     """The arguments of the plain version: K5's take no K-major weight copy."""
     return args[:8] if name == "conv3x3_int8" else args
+
+
+def norm_launch(name, args) -> tuple:
+    """(n, blocks) of a norm kernel's launch plan on the rollout's inputs, as this card
+    launches it: the blocks per sample's cluster and the grid."""
+    from diamond_tpu_torch.ops.fused_norms import launch_plan
+
+    x, g = args[0], args[2] if name.startswith("adagn") else args[3]
+    p = launch_plan(x, g, name, name.endswith("_q8"))
+    return p.n, p.blocks
 
 
 def conv_blocks(name, args) -> int:
@@ -348,13 +359,15 @@ def compare_kernels(shapes, launches, num_rollouts):
                         row["cudnn_bf16_ms"] = cuda_time_ms(
                             lambda: cudnn_bf16_conv(xb, wb, bias, stride))
                         tot["cudnn_bf16_ms"] += w * row["cudnn_bf16_ms"]
-                    if name.startswith("conv"):  # ratio to cuDNN, share of the bound, blocks
+                    row["bound_share"] = row["bound_ms"] / t_k
+                    if name.startswith("conv"):  # ratio to cuDNN, blocks
                         row["vs_library"] = t_k / row.get("library_ms", row.get("cudnn_bf16_ms"))
-                        row["bound_share"] = row["bound_ms"] / t_k
                         row["blocks"] = conv_blocks(name, args)
+                    else:  # the norm's cluster size and blocks
+                        row["cluster"], row["blocks"] = norm_launch(name, args)
                 if name == "adagn_silu_q8":  # K4's per-sample epilogue at the same shapes
                     x, ss, g, _ = args
-                    c = x.shape[-1]
+                    c, ss = x.shape[-1], ss.float()  # its rows in f32, as it takes them
                     mean_c, inv_c = ops.group_stats_channels(x, g)
                     pargs = (x, mean_c, inv_c, 1 + ss[:, :c], ss[:, c:])
                     qt, ref = ops.norm_affine_silu_q8(*pargs), ops.norm_affine_silu_q8_plain(*pargs)
@@ -376,6 +389,7 @@ def compare_kernels(shapes, launches, num_rollouts):
                     f"{t_p:.4f} ms" + "".join(f" {k} {row[k]:.4f}" for k in (
                         "bound_ms", "library_ms", "cudnn_bf16_ms", "per_sample_ms",
                         "vs_library", "bound_share") if k in row)
+                    + (f" cluster {row['cluster']}" if "cluster" in row else "")
                     + (f" blocks {row['blocks']}" if "blocks" in row else ""))
         entry = dict(name=name, route="cuda", source=source, replaces=replaces,
                      launches=launches[path][name], max_abs_err=err["bfloat16"],
@@ -487,12 +501,13 @@ def profile_rollout(engine, st, pool, gen, label) -> dict:
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / f"chip_smoke_profile_{label}.txt").write_text(
         events.table(sort_by="self_device_time_total", row_limit=40))
     log(f"[profile] {label} rollout: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms "
-        f"(idle {100 * (1 - busy_ms / wall_ms):.1f} %), {launches} cudaLaunchKernel calls")
+        f"(idle {100 * (1 - busy_ms / wall_ms):.1f} %), {launches} kernel launch calls "
+        f"(cudaLaunchKernel + cudaLaunchKernelExC)")
     for e in kernels[:8]:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms {e.count:6d}x {e.key[:90]}")
     return dict(busy_ms=busy_ms, wall_ms=wall_ms, launches=launches,
@@ -744,6 +759,8 @@ def main() -> int:
             f"{r['shapes']} shapes, {r['ms']:.2f} ms of device time per rollout (plain "
             f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.2f} ms by {r['bound_by']}"
             + (f", library {r['library_ms']:.2f} ms" if r["library_ms"] is not None else "")
+            + (f"; on the {r['library_covers']}: kernel {r['ms_where_library']:.2f} ms, library "
+               f"{r['library_ms']:.2f} ms" if "library_covers" in r else "")
             + ")")
     results["reference_bf16"] = reference_check(agent, st, pool, wm_cfg)
     results["reference_int8"] = reference_check(agent, st, pool, wm_cfg, rt.int8_sites)

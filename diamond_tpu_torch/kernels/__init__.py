@@ -29,22 +29,25 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _SIGNATURES = {
-    # x, scale_shift, y, B, HW, C, G, silu, partials, S, span, threads, dtype, stream
-    "adagn_silu_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _L, _I, _I, _P),
-    # x, scale, bias, y, B, HW, C, G, silu, partials, S, span, threads, dtype, stream
-    "groupnorm_silu_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _L, _I, _I, _P),
+    # x, scale_shift, aff_dtype, y, silu, plan (ops/norm_plan.py), stream
+    "adagn_silu_fwd": (_P, _P, _I, _P, _I, _P, _P),
+    # x, scale, bias, aff_dtype, y, silu, plan, stream
+    "groupnorm_silu_fwd": (_P, _P, _P, _I, _P, _I, _P, _P),
     # x, w, bias, y, plan (ops/conv_plan.py), stream
     "conv3x3_bf16_fwd": (_P, _P, _P, _P, _P, _P),
     # x, w, bias, y, B, H, W, Cin, Cout, stride, stream
     "conv3x3_f32_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, mean, inv, gamma, beta, q, scale, amax, B, HW, C, S, span, threads, dtype, stream
     "norm_affine_silu_q8_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P),
-    # x, scale_shift, act_max, q, B, HW, C, G, partials, S, span, threads, dtype, stream
-    "adagn_silu_q8_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _L, _I, _I, _P),
-    # x, scale, bias, act_max, q, B, HW, C, G, partials, S, span, threads, dtype, stream
-    "groupnorm_silu_q8_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _L, _I, _I, _P),
+    # x, scale_shift, aff_dtype, act_max, q, plan, stream
+    "adagn_silu_q8_fwd": (_P, _P, _I, _P, _P, _P, _P),
+    # x, scale, bias, aff_dtype, act_max, q, plan, stream
+    "groupnorm_silu_q8_fwd": (_P, _P, _P, _I, _P, _P, _P, _P),
     # x, x_dtype, act_max, w_k, w_scale, sample_scale, bias, y, out_dtype, plan, stream
     "conv3x3_q8_fwd": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P),
+    # plan: the clusters of the norm kernels the card can run at once (K1/K2, K4 static)
+    "gn_max_clusters": (_P,),
+    "gn_q8_max_clusters": (_P,),
 }
 
 _lib: Optional[ctypes.CDLL] = None

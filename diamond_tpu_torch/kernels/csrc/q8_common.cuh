@@ -14,15 +14,28 @@ __device__ __forceinline__ signed char quantize_q8(float v, float s) {
   return static_cast<signed char>(__float2int_rn(r));
 }
 
-// The same code from the reciprocal r = 1/s (rounded), one multiply instead of a
-// division: t = v * r is within |v/s| * 1.8e-7 of the correctly rounded quotient, so for
-// |t| < 256 its rounding to an integer can differ only where t lies within 4.6e-5 of a
-// half-integer; there the true division decides. For |t| >= 256 both clip to +-127.
+// The code of v from the reciprocal r = 1/s (rounded), one multiply instead of a
+// division, in full-rate arithmetic only, as the low byte of the returned bits, and
+// dist = |t - round(t)| <= 0.5: above kNearTie the true division must decide. t = v * r
+// is within |v/s| * 1.8e-7 of the correctly rounded quotient, so for |t| < 256 its
+// rounding to an integer can differ only where t lies within 4.6e-5 of a half-integer.
+// Clipping to +-127 before rounding gives the same code (the bounds are integers), and
+// adding 1.5 * 2^23 (bits 0x4B400000) to a clipped t rounds it to an integer k, half to
+// even: the sum's bits are 0x4B400000 + k, whose low byte is k as an int8.
+constexpr float kNearTie = 0.5f - 1e-4f;
+
+__device__ __forceinline__ uint32_t q8_rcp_bits(float v, float r, float& dist) {
+  constexpr float kRound = 12582912.f;
+  const float t = fminf(fmaxf(__fmul_rn(v, r), -127.f), 127.f);
+  const float m = __fadd_rn(t, kRound);
+  dist = fabsf(__fsub_rn(t, __fsub_rn(m, kRound)));
+  return __float_as_uint(m);
+}
+
 __device__ __forceinline__ signed char quantize_q8_rcp(float v, float s, float r) {
-  const float t = __fmul_rn(v, r);
-  const bool near_tie = fabsf(t) < 256.f && fabsf(fabsf(t - truncf(t)) - 0.5f) < 1e-4f;
-  const float q = rintf(near_tie ? __fdiv_rn(v, s) : t);
-  return static_cast<signed char>(__float2int_rn(fminf(fmaxf(q, -127.f), 127.f)));
+  float dist;
+  const uint32_t bits = q8_rcp_bits(v, r, dist);
+  return dist > kNearTie ? quantize_q8(v, s) : static_cast<signed char>(bits & 0xffu);
 }
 
 // The static per-input-channel scale of diamond_tpu/ops/quant.py:

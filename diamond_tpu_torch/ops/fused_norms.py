@@ -2,11 +2,12 @@
 
 Counterpart of diamond_tpu/ops/fused_norms.py (``fused_adagn_silu`` and
 ``fused_groupnorm_silu``, Pallas TPU kernels). On a CUDA tensor each wrapper launches
-the hand-written Hopper kernel in ``kernels/csrc/fused_norms.cu`` (a statistics pass
-split over spatial spans, then one apply pass; the source's note says what bounds it);
-on a CPU tensor it runs the plain PyTorch version beside it, written to the JAX
-package's formulas: f32 single-pass moments E[x^2] - E[x]^2 per group, eps 1e-5, one
-rounding to x's dtype at the end.
+the hand-written Hopper kernel in ``kernels/csrc/fused_norms.cu`` (one launch per call:
+one thread-block cluster per sample holds the image in shared memory, on the launch
+plan of ``ops/norm_plan.py``; the source's note says what bounds it); on a CPU tensor it
+runs the plain PyTorch version beside it, written to the JAX package's formulas: f32
+single-pass moments E[x^2] - E[x]^2 per group, eps 1e-5, one rounding to x's dtype at
+the end. The FiLM rows and the affine are read as they come, f32 or bf16.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches`` and the call
 signatures it launched with in ``<wrapper>.shapes``.
@@ -14,17 +15,15 @@ signatures it launched with in ``<wrapper>.shapes``.
 
 from __future__ import annotations
 
+import functools
 from collections import Counter
 
 import torch
 
 from .. import kernels
+from .norm_plan import PORTABLE_CLUSTER, NormPlan, norm_plan, plan_for
 
 GN_EPS = 1e-5
-_MAX_THREADS = 256   # kernels/csrc/gn_common.cuh kMaxThreads
-_MAX_GROUPS = 64     # kernels/csrc/gn_common.cuh kMaxGroups
-_MAX_SPANS = 64
-_ITERS_PER_SPAN = 4  # steps of threads * V elements per block and pass
 
 
 def _group_moments(x: torch.Tensor, num_groups: int, eps: float = GN_EPS):
@@ -66,30 +65,46 @@ def adagn_silu_plain(x: torch.Tensor, scale_shift: torch.Tensor, num_groups: int
     return y.to(x.dtype)
 
 
-def _launch_shape(x: torch.Tensor, num_groups: int, name: str):
-    """(threads, S, span) of a launch over x, raising on what the kernel does not take.
-    A block has ``threads`` threads, the largest multiple of C/V up to 256 (V = 16-byte
-    vector width), so each thread keeps the same channels; each sample is cut into S
-    contiguous spans of a whole number of threads*V-element steps."""
+@functools.lru_cache(maxsize=None)
+def placed_plan(plan: NormPlan, q8: bool, device: int) -> NormPlan:
+    """``plan``, or its 8-block form where the card cannot place a cluster of plan.n > 8
+    blocks (a GPC that holds fewer of them); asked once per plan, kernel and card."""
+    with torch.cuda.device(device):
+        lib = kernels.lib()
+        clusters = (lib.gn_q8_max_clusters if q8 else lib.gn_max_clusters)(plan.c_ints)
+    kernels.check(max(0, -clusters), "gn_max_clusters")
+    if clusters > 0:
+        return plan
+    return plan_for(plan.B, plan.HW, plan.C, plan.G, plan.elem_bytes, PORTABLE_CLUSTER)
+
+
+def launch_plan(x: torch.Tensor, num_groups: int, name: str, q8: bool = False) -> NormPlan:
+    """The launch plan of a call on x (``q8``: K4's int8 epilogue), raising on what the
+    kernel does not take."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: x must be a CPU or CUDA tensor, got {x.device}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be a contiguous (B, H, W, C) tensor")
     kernels.dtype_code(x.dtype)
-    vec = 16 // x.element_size()
-    _, h, w, c = x.shape
-    threads = _MAX_THREADS // (c // vec) * (c // vec) if c % vec == 0 else 0
-    if (not threads or c % num_groups or (c // num_groups) % vec
-            or num_groups > _MAX_GROUPS or x.data_ptr() % 16):
-        raise ValueError(f"{name}: unsupported C={c}, groups={num_groups} for {x.dtype}")
-    step = threads * vec
-    iters = -(-(h * w * c) // step)
-    s = max(1, min(_MAX_SPANS, -(-iters // _ITERS_PER_SPAN)))
-    return threads, s, -(-iters // s) * step
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be 16-byte aligned")
+    b, h, w, c = x.shape
+    try:
+        plan = norm_plan(b, h * w, c, num_groups, x.element_size())
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    return plan if plan.n <= PORTABLE_CLUSTER else placed_plan(plan, q8, x.device.index)
 
 
-def _on(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return t.to(device=x.device, dtype=torch.float32).contiguous()
+def affine_rows(x: torch.Tensor, name: str, *rows: torch.Tensor):
+    """(rows, dtype code) of FiLM rows or affine vectors as the kernel reads them: on x's
+    device, contiguous, all f32 or all bf16 (no copy where they already are)."""
+    if any(r.device != x.device for r in rows):
+        raise ValueError(f"{name}: scale and shift must be on {x.device}")
+    dtypes = {r.dtype for r in rows}
+    if len(dtypes) != 1:
+        raise ValueError(f"{name}: scale and shift must have one dtype, got {dtypes}")
+    return [r.contiguous() for r in rows], kernels.dtype_code(rows[0].dtype)
 
 
 def adagn_silu(x: torch.Tensor, scale_shift: torch.Tensor, num_groups: int,
@@ -98,16 +113,14 @@ def adagn_silu(x: torch.Tensor, scale_shift: torch.Tensor, num_groups: int,
     FiLM projection of the conditioning vector, split at C."""
     if x.device.type == "cpu":
         return adagn_silu_plain(x, scale_shift, num_groups, silu)
-    threads, s, span = _launch_shape(x, num_groups, "adagn_silu")
+    plan = launch_plan(x, num_groups, "adagn_silu")
     b, h, w, c = x.shape
     if tuple(scale_shift.shape) != (b, 2 * c):
         raise ValueError(f"adagn_silu: scale_shift must be ({b}, {2 * c})")
-    ss = _on(scale_shift, x)
-    partials = torch.empty((b, s, num_groups, 2), device=x.device, dtype=torch.float32)
+    (ss,), code = affine_rows(x, "adagn_silu", scale_shift)
     y = torch.empty_like(x)
     kernels.check(kernels.lib().adagn_silu_fwd(
-        x.data_ptr(), ss.data_ptr(), y.data_ptr(), b, h * w, c, num_groups, int(silu),
-        partials.data_ptr(), s, span, threads, kernels.dtype_code(x.dtype),
+        x.data_ptr(), ss.data_ptr(), code, y.data_ptr(), int(silu), plan.c_ints,
         torch.cuda.current_stream(x.device).cuda_stream), "adagn_silu")
     adagn_silu.launches += 1
     adagn_silu.shapes[(tuple(x.shape), str(x.dtype), bool(silu))] += 1
@@ -119,16 +132,14 @@ def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """[SiLU](GN(x) * scale + bias); x (B, H, W, C), scale and bias (C,)."""
     if x.device.type == "cpu":
         return groupnorm_silu_plain(x, scale, bias, num_groups, silu)
-    threads, s, span = _launch_shape(x, num_groups, "groupnorm_silu")
-    b, h, w, c = x.shape
+    plan = launch_plan(x, num_groups, "groupnorm_silu")
+    c = x.shape[-1]
     if scale.shape != (c,) or bias.shape != (c,):
         raise ValueError(f"groupnorm_silu: scale and bias must be ({c},)")
-    sc, bi = _on(scale, x), _on(bias, x)
-    partials = torch.empty((b, s, num_groups, 2), device=x.device, dtype=torch.float32)
+    (sc, bi), code = affine_rows(x, "groupnorm_silu", scale, bias)
     y = torch.empty_like(x)
     kernels.check(kernels.lib().groupnorm_silu_fwd(
-        x.data_ptr(), sc.data_ptr(), bi.data_ptr(), y.data_ptr(), b, h * w, c, num_groups,
-        int(silu), partials.data_ptr(), s, span, threads, kernels.dtype_code(x.dtype),
+        x.data_ptr(), sc.data_ptr(), bi.data_ptr(), code, y.data_ptr(), int(silu), plan.c_ints,
         torch.cuda.current_stream(x.device).cuda_stream), "groupnorm_silu")
     groupnorm_silu.launches += 1
     groupnorm_silu.shapes[(tuple(x.shape), str(x.dtype), bool(silu))] += 1

@@ -10,7 +10,8 @@ plain PyTorch version beside it. Two epilogues:
 * ``adagn_silu_q8`` / ``groupnorm_silu_q8`` (static scale, the int8 rollout's fusion):
   the output of ``adagn_silu`` / ``groupnorm_silu`` with SiLU, rounded to x's dtype,
   quantized with the consuming conv's calibrated s_c (ops/quant.py): the int8 codes a
-  quantized 3x3 conv reads, written by the norm instead of a bf16 tensor.
+  quantized 3x3 conv reads, written by the norm instead of a bf16 tensor. K1/K2's
+  kernel and launch plan (ops/norm_plan.py) with an int8 epilogue: one launch per call.
 
 ``group_stats_channels`` gives the per-channel GroupNorm statistics the per-sample
 kernel takes, and ``conv3x3_qtensor`` convolves a QTensor through K5 (ops/conv3x3_q8.py)
@@ -29,8 +30,12 @@ import torch
 
 from .. import kernels
 from .conv3x3_q8 import conv3x3_int8, quantize_static, true_div
-from .fused_norms import (GN_EPS, _group_moments, _launch_shape, _on, adagn_silu_plain,
-                          groupnorm_silu_plain)
+from .fused_norms import (GN_EPS, _group_moments, adagn_silu_plain, affine_rows,
+                          groupnorm_silu_plain, launch_plan)
+
+_MAX_THREADS = 256   # kernels/csrc/fused_q8.cu kSpanThreads
+_MAX_SPANS = 64
+_ITERS_PER_SPAN = 4  # steps of threads * V elements per block and pass
 
 
 class QTensor(NamedTuple):
@@ -42,6 +47,31 @@ class QTensor(NamedTuple):
 
 # ---------------------------------------------------------------------------
 # per-sample scale
+
+
+def _span_launch(x: torch.Tensor, name: str):
+    """(threads, S, span) of the per-sample kernels' grid (S, B) over x, raising on what
+    they do not take. A block has ``threads`` threads, the largest multiple of C/V up to
+    256 (V = 16-byte vector width), so each thread keeps the same channels; each sample
+    is cut into S contiguous spans of a whole number of threads*V-element steps."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: x must be a CPU or CUDA tensor, got {x.device}")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be a contiguous (B, H, W, C) tensor")
+    kernels.dtype_code(x.dtype)
+    vec = 16 // x.element_size()
+    _, h, w, c = x.shape
+    threads = _MAX_THREADS // (c // vec) * (c // vec) if c % vec == 0 else 0
+    if not threads or x.data_ptr() % 16:
+        raise ValueError(f"{name}: unsupported C={c} for {x.dtype}")
+    step = threads * vec
+    iters = -(-(h * w * c) // step)
+    s = max(1, min(_MAX_SPANS, -(-iters // _ITERS_PER_SPAN)))
+    return threads, s, -(-iters // s) * step
+
+
+def _on(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return t.to(device=x.device, dtype=torch.float32).contiguous()
 
 
 def norm_affine_silu_q8_plain(x: torch.Tensor, mean_c: torch.Tensor, inv_c: torch.Tensor,
@@ -61,7 +91,7 @@ def norm_affine_silu_q8(x: torch.Tensor, mean_c: torch.Tensor, inv_c: torch.Tens
     (1 + scale, shift) or GroupNorm's (scale, bias) repeated over B."""
     if x.device.type == "cpu":
         return norm_affine_silu_q8_plain(x, mean_c, inv_c, gamma, beta)
-    threads, s, span = _launch_shape(x, 1, "norm_affine_silu_q8")
+    threads, s, span = _span_launch(x, "norm_affine_silu_q8")
     b, h, w, c = x.shape
     rows = [_on(t, x) for t in (mean_c, inv_c, gamma, beta)]
     if any(tuple(t.shape) != (b, c) for t in rows):
@@ -123,16 +153,15 @@ def adagn_silu_q8(x: torch.Tensor, scale_shift: torch.Tensor, num_groups: int,
     ``quantize_static(adagn_silu(x, scale_shift, num_groups), act_max)``."""
     if x.device.type == "cpu":
         return adagn_silu_q8_plain(x, scale_shift, num_groups, act_max)
-    threads, s, span = _launch_shape(x, num_groups, "adagn_silu_q8")
+    plan = launch_plan(x, num_groups, "adagn_silu_q8", q8=True)
     b, h, w, c = x.shape
     if tuple(scale_shift.shape) != (b, 2 * c):
         raise ValueError(f"adagn_silu_q8: scale_shift must be ({b}, {2 * c})")
-    ss, am = _on(scale_shift, x), _act_max_on(act_max, x, "adagn_silu_q8")
-    partials = torch.empty((b, s, num_groups, 2), device=x.device, dtype=torch.float32)
+    (ss,), code = affine_rows(x, "adagn_silu_q8", scale_shift)
+    am = _act_max_on(act_max, x, "adagn_silu_q8")
     q = torch.empty(x.shape, device=x.device, dtype=torch.int8)
     kernels.check(kernels.lib().adagn_silu_q8_fwd(
-        x.data_ptr(), ss.data_ptr(), am.data_ptr(), q.data_ptr(), b, h * w, c, num_groups,
-        partials.data_ptr(), s, span, threads, kernels.dtype_code(x.dtype),
+        x.data_ptr(), ss.data_ptr(), code, am.data_ptr(), q.data_ptr(), plan.c_ints,
         torch.cuda.current_stream(x.device).cuda_stream), "adagn_silu_q8")
     adagn_silu_q8.launches += 1
     adagn_silu_q8.shapes[(tuple(x.shape), str(x.dtype))] += 1
@@ -146,18 +175,16 @@ def groupnorm_silu_q8(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     ``quantize_static(groupnorm_silu(x, scale, bias, num_groups), act_max)``."""
     if x.device.type == "cpu":
         return groupnorm_silu_q8_plain(x, scale, bias, num_groups, act_max)
-    threads, s, span = _launch_shape(x, num_groups, "groupnorm_silu_q8")
-    b, h, w, c = x.shape
+    plan = launch_plan(x, num_groups, "groupnorm_silu_q8", q8=True)
+    c = x.shape[-1]
     if scale.shape != (c,) or bias.shape != (c,):
         raise ValueError(f"groupnorm_silu_q8: scale and bias must be ({c},)")
-    sc, bi = _on(scale, x), _on(bias, x)
+    (sc, bi), code = affine_rows(x, "groupnorm_silu_q8", scale, bias)
     am = _act_max_on(act_max, x, "groupnorm_silu_q8")
-    partials = torch.empty((b, s, num_groups, 2), device=x.device, dtype=torch.float32)
     q = torch.empty(x.shape, device=x.device, dtype=torch.int8)
     kernels.check(kernels.lib().groupnorm_silu_q8_fwd(
-        x.data_ptr(), sc.data_ptr(), bi.data_ptr(), am.data_ptr(), q.data_ptr(), b, h * w, c,
-        num_groups, partials.data_ptr(), s, span, threads, kernels.dtype_code(x.dtype),
-        torch.cuda.current_stream(x.device).cuda_stream), "groupnorm_silu_q8")
+        x.data_ptr(), sc.data_ptr(), bi.data_ptr(), code, am.data_ptr(), q.data_ptr(),
+        plan.c_ints, torch.cuda.current_stream(x.device).cuda_stream), "groupnorm_silu_q8")
     groupnorm_silu_q8.launches += 1
     groupnorm_silu_q8.shapes[(tuple(x.shape), str(x.dtype))] += 1
     return q

@@ -184,6 +184,133 @@ def test_k5_quantizes_near_rounding_ties_like_a_true_division():
         assert torch.equal(y, conv3x3_int8_plain(xin, wq, ws, am, None, 1, torch.float32))
 
 
+# The norm signature classes of both rollout paths, (B, H, C): every (H, C) of the
+# denoiser, rew/end and actor-critic norms (B = 32 up to 16x16, 4 above); then the ragged
+# cases: B = 1, C = 32 with one group, C = 128, odd H = W = 9, C = 96, the f32 64x64x128
+# sample (2 MB, 16 blocks) and f32 64x64x256 (beyond 16 blocks' shared memory: a spill).
+NORM_SHAPES = ([(32 if h <= 16 else 4, h, c) for h in (64, 32, 16, 8) for c in (32, 64, 128)]
+               + [(1, 64, 64), (1, 8, 32), (2, 9, 128), (3, 9, 32), (2, 5, 96)])
+NORM_F32_ONLY = [(2, 64, 128), (1, 64, 256)]
+
+
+def _norm_inputs(b, h, c, dt, g, ss_dtype=torch.float32):
+    x = (torch.randn(b, h, h, c, device="cuda", generator=g) * 2 + 0.5).to(dt)
+    ss = (0.5 * torch.randn(b, 2 * c, device="cuda", generator=g)).to(ss_dtype)
+    sc, bi = 1 + 0.1 * torch.randn(c, device="cuda", generator=g), 0.1 * torch.randn(
+        c, device="cuda", generator=g)
+    return x, ss, sc, bi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_norm_kernels_at_every_signature_class(dtype):
+    """K1, K2 (with and without SiLU) and K4's static epilogue at every norm signature
+    class of the rollout and the ragged cases, against their plain versions: bf16 within
+    1/64 and f32 (TF32 off) within 1e-4 of max(1, max |plain|); K4's codes equal
+    quantize_static of the K1/K2 kernel's output, and lie within one code of the plain
+    version's in at most 0.1 % of the elements. The FiLM rows are given in bf16, as the
+    model's linear layer makes them, and the K2 affine in f32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    tol = 1e-4 if dt == torch.float32 else 1 / 64
+    g = torch.Generator(device="cuda").manual_seed(4)
+
+    def close(a, b):
+        torch.cuda.synchronize()
+        scale = max(1.0, b.float().abs().max().item())
+        assert (a.float() - b.float()).abs().max().item() <= tol * scale
+
+    shapes = NORM_SHAPES + (NORM_F32_ONLY if dt == torch.float32 else [])
+    for b, h, c in shapes:
+        gr = max(1, c // 32)
+        x, ss, sc, bi = _norm_inputs(b, h, c, dt, g, torch.bfloat16)
+        for silu in (True, False):
+            close(adagn_silu(x, ss, gr, silu), adagn_silu_plain(x, ss, gr, silu))
+            close(groupnorm_silu(x, sc, bi, gr, silu), groupnorm_silu_plain(x, sc, bi, gr, silu))
+        am = adagn_silu_plain(x, ss, gr).float().abs().amax(dim=(0, 1, 2)) * 0.95
+        q = adagn_silu_q8(x, ss, gr, am)
+        torch.cuda.synchronize()
+        assert torch.equal(q, quantize_static(adagn_silu(x, ss, gr), am))
+        _codes_close(q, adagn_silu_q8_plain(x, ss, gr, am))
+        q = groupnorm_silu_q8(x, sc, bi, gr, am)
+        assert torch.equal(q, quantize_static(groupnorm_silu(x, sc, bi, gr), am))
+        _codes_close(q, groupnorm_silu_q8_plain(x, sc, bi, gr, am))
+
+
+@pytest.mark.cuda
+def test_norm_kernels_read_bf16_and_f32_affine_alike_and_repeat_exactly():
+    """The FiLM rows (and GroupNorm's affine) given in bf16 or as the same values in f32
+    give the same output bit for bit (the kernel reads bf16 exactly); two calls on the
+    same input are equal (a fixed reduction order, no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for b, h, c in [(32, 8, 64), (4, 64, 128), (4, 32, 64), (2, 64, 64)]:
+        gr = max(1, c // 32)
+        x, ss, sc, bi = _norm_inputs(b, h, c, torch.bfloat16, g, torch.bfloat16)
+        am = torch.rand(c, device="cuda", generator=g) + 0.5
+        sc16, bi16 = sc.bfloat16(), bi.bfloat16()
+        for fn, args16, args32 in [
+                (adagn_silu, (x, ss, gr), (x, ss.float(), gr)),
+                (adagn_silu_q8, (x, ss, gr, am), (x, ss.float(), gr, am)),
+                (groupnorm_silu, (x, sc16, bi16, gr), (x, sc16.float(), bi16.float(), gr)),
+                (groupnorm_silu_q8, (x, sc16, bi16, gr, am),
+                 (x, sc16.float(), bi16.float(), gr, am))]:
+            first = fn(*args16)
+            torch.cuda.synchronize()
+            assert torch.equal(first, fn(*args32)), fn.__name__
+            assert torch.equal(first, fn(*args16)), fn.__name__
+
+
+@pytest.mark.cuda
+def test_card_places_the_16_block_norm_clusters():
+    """The plans of 16 blocks per sample (bf16 and f32 64x64x128 at B = 32) are ones this
+    card can run (an H100 SXM holds a cluster of 16 such blocks in one GPC), so the
+    wrappers launch them as planned, not their 8-block fallback."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diamond_tpu_torch import kernels
+    from diamond_tpu_torch.ops.fused_norms import launch_plan
+    from diamond_tpu_torch.ops.norm_plan import norm_plan
+
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.zeros(32, 64, 64, 128, dtype=dt, device="cuda")
+        p = norm_plan(32, 64 * 64, 128, 4, x.element_size())
+        assert p.n == 16
+        for fn, q8 in ((kernels.lib().gn_max_clusters, False),
+                       (kernels.lib().gn_q8_max_clusters, True)):
+            assert fn(p.c_ints) > 0
+            assert launch_plan(x, 4, "adagn_silu", q8) is p
+
+
+@pytest.mark.cuda
+def test_k4_quantizes_near_rounding_ties_like_a_true_division():
+    """K4 quantizes by a multiply with 1/s_c and falls back to the true division near a
+    rounding tie: with act_max chosen so that a value K1 writes in each channel lands
+    within an ulp of code 2.5 (y0 / s_c = 2.5), K4's codes still equal quantize_static of
+    K1's output, which divides truly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diamond_tpu_torch.ops.conv3x3_q8 import static_scale
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for b, h, c, dt in [(32, 8, 64, torch.bfloat16), (4, 32, 128, torch.bfloat16),
+                        (8, 16, 32, torch.float32)]:
+        gr = max(1, c // 32)
+        x, ss, _, _ = _norm_inputs(b, h, c, dt, g, torch.bfloat16)
+        y = adagn_silu(x, ss, gr).float()
+        y0 = y.reshape(-1, c).abs().median(dim=0).values.clamp_min(1e-3)
+        am = (y0.double() / 2.5 * 127 / 1.05).float()
+        t = y / static_scale(am)
+        assert ((t.abs() - 2.5).abs() < 1e-4).sum().item() > 0  # ties are there to hit
+        q = adagn_silu_q8(x, ss, gr, am)
+        torch.cuda.synchronize()
+        assert torch.equal(q, quantize_static(adagn_silu(x, ss, gr), am))
+
+
 @pytest.mark.cuda
 def test_int8_matmul_routes_agree_on_the_card():
     """matmul_q8_static: torch._int_mm (shapes it takes) and the float64 route give the
