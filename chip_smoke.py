@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of diamond_tpu_torch: the imagination rollout of the full-size Breakout
-agent on one NVIDIA GPU, bf16 and static int8 (the production default), through the
-port's hand-written CUDA kernels.
+agent on one NVIDIA GPU, bf16 and static int8 (the production default), and the
+actor-critic train step in imagination on the int8 world model, through the port's
+hand-written CUDA kernels.
 
     python3 chip_smoke.py              # from the repo root, on a machine with a CUDA GPU
 
@@ -25,19 +26,30 @@ result line):
      each;
   6. one full-size world-model step int8 against bf16 from the same state and x_init:
      the frame difference in grid levels (a figure, not a check);
+  6b. the actor-critic train step (training.make_ac_train_step, B=32, T=15, bf16
+     actor-critic, the int8-calibrated world model, warmup 0): counts set to 0, one
+     warm-up and AC_STEPS timed steps -> ms per step, training env_frames/s, the
+     backward kernels' launches (K2's backward, K3's data and weight gradients each
+     > 0), peak memory; loss and gradient norm finite, the actor-critic's weights
+     moved, the world model's unchanged and without gradients; one step profiled and
+     one under the sync debug mode;
   7. each kernel against its plain PyTorch version at every shape and dtype its path
-     sent it, and in f32 (TF32 off), with device times, bounds and library yardsticks;
+     sent it (the backward kernels: the AC step's), and in f32 (TF32 off), with device
+     times, bounds and library yardsticks; the backward kernels also repeat bit for bit;
      the share of the bound; for the 3x3 convs also the ratio to cuDNN's bf16 conv and
      the blocks of the launch plan, for the norms the cluster size and blocks of theirs;
      K4's per-sample epilogue at the int8 path's norm shapes;
   8. the trajectories' sanity, and small full-width rollouts in f32 on the card against
-     the same rollouts through the plain versions on the CPU, bf16 path and int8 path.
+     the same rollouts through the plain versions on the CPU, bf16 path and int8 path;
+     the actor-critic's gradient (trunk and heads) on the same frames and carries, card
+     against CPU, and a B=2, T=2 f32 AC-step loss and gradient card against CPU.
 The last line is {"ok": true, "device": {...}}; the line before it lists the kernels.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -47,9 +59,11 @@ SEED = 0
 BATCH, HORIZON = 32, 15
 POOL_SIZE = 1024
 TIMED_ROLLOUTS = 2
+AC_STEPS = 3
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
-# kernel -> (source, the TPU kernel it replaces, the rollout path that launches it)
+# kernel -> (source, the TPU kernel it replaces, the path that launches it: a rollout
+# path, or the actor-critic train step for the backward kernels)
 KERNELS = {
     "adagn_silu": ("diamond_tpu_torch/kernels/csrc/fused_norms.cu",
                    "diamond_tpu/ops/fused_norms.py:97", "bf16"),
@@ -63,17 +77,29 @@ KERNELS = {
                           "diamond_tpu/ops/fused_q8.py:55", "int8"),
     "conv3x3_int8": ("diamond_tpu_torch/kernels/csrc/conv3x3_q8.cu",
                      "diamond_tpu/ops/quant.py:161", "int8"),
+    # the backward of K2's custom_vjp (the XLA VJP of _gn_silu_ref on the TPU)
+    "groupnorm_silu_bwd": ("diamond_tpu_torch/kernels/csrc/gn_bwd.cu",
+                           "diamond_tpu/ops/fused_norms.py:155", "ac_step"),
+    # K3's gradients (XLA's VJP of the 3x3 conv on the TPU)
+    "conv3x3_dgrad": ("diamond_tpu_torch/kernels/csrc/conv3x3.cu",
+                      "diamond_tpu/ops/conv3x3.py:33", "ac_step"),
+    "conv3x3_wgrad": ("diamond_tpu_torch/kernels/csrc/conv3x3_wgrad.cu",
+                      "diamond_tpu/ops/conv3x3.py:33", "ac_step"),
 }
+BACKWARD = ("groupnorm_silu_bwd", "conv3x3_dgrad", "conv3x3_wgrad")
 # max |kernel - plain| allowed, as a share of max(1, max |plain|): f32 sums in another
 # order (TF32 off on both sides); bf16 outputs are rounded once on both sides and may
 # differ by one bf16 ulp (1/128 relative), so 2 ulps are allowed. The int8 conv is exact
 # (int8 sums, then the same IEEE f32 steps). The quantizing norms are held in codes:
 # at most 1 apart (a multiply-add the kernel fuses moves a value across a rounding
-# boundary), in at most CODE_SHARE of the elements.
+# boundary), in at most CODE_SHARE of the elements. K2's backward: f32 dx 1e-4, dscale
+# and dbias 1e-3 (sums over up to 131k terms in another order), bf16 all 1/64.
 TOL = {"float32": {"adagn_silu": 1e-4, "groupnorm_silu": 1e-4, "conv3x3": 1e-3,
-                   "conv3x3_int8": 0.0},
+                   "conv3x3_int8": 0.0, "groupnorm_silu_bwd": (1e-4, 1e-3, 1e-3),
+                   "conv3x3_dgrad": 1e-3, "conv3x3_wgrad": 1e-3},
        "bfloat16": {"adagn_silu": 1 / 64, "groupnorm_silu": 1 / 64, "conv3x3": 1 / 64,
-                    "conv3x3_int8": 0.0}}
+                    "conv3x3_int8": 0.0, "groupnorm_silu_bwd": (1 / 64,) * 3,
+                    "conv3x3_dgrad": 1 / 64, "conv3x3_wgrad": 1 / 64}}
 CODE_SHARE = 1e-3
 # The H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and dense
 # operations/s by type; the norms' element-wise work runs on the CUDA cores in f32.
@@ -137,7 +163,9 @@ def cudnn_bf16_conv(x, w, b, stride):
 
 def library_call(name, args):
     """The one PyTorch call that computes the kernel's function, where there is one, as a
-    yardstick: cuDNN's conv for K3, F.group_norm for K2 without SiLU. None otherwise."""
+    yardstick: cuDNN's conv for K3, its data and weight gradients for K3's, F.group_norm
+    for K2 without SiLU. None otherwise (K2's backward has its own, ``gn_autograd_ms``)."""
+    import torch
     import torch.nn.functional as F
 
     if name == "conv3x3":
@@ -146,7 +174,40 @@ def library_call(name, args):
         x, scale, bias, g, _ = args
         return lambda: F.group_norm(x.permute(0, 3, 1, 2), g, scale.to(x.dtype),
                                     bias.to(x.dtype), eps=1e-5)
+    if name == "conv3x3_dgrad":
+        dy, w = args
+        b, h, wd, _ = dy.shape
+        return lambda: torch.nn.grad.conv2d_input((b, w.shape[2], h, wd), w.permute(3, 2, 0, 1),
+                                                  dy.permute(0, 3, 1, 2), padding=1)
+    if name == "conv3x3_wgrad":
+        x, dy = args
+        return lambda: torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2),
+                                                   (dy.shape[-1], x.shape[-1], 3, 3),
+                                                   dy.permute(0, 3, 1, 2), padding=1)
     return None
+
+
+def gn_autograd_ms(args) -> float:
+    """K2's backward yardstick: autograd of F.group_norm + F.silu (cuDNN-free native
+    kernels) on the same x, affine and dy, channels-last; its device time is that of
+    forward + backward less that of the forward, both graph-captured (the backward runs
+    on the forward's stream, so the forward is captured with it)."""
+    import torch
+    import torch.nn.functional as F
+
+    x, dy, scale, bias, g, silu = args
+    xr = x.permute(0, 3, 1, 2).detach().requires_grad_()
+    sc = scale.to(x.dtype).detach().requires_grad_()
+    bi = bias.to(x.dtype).detach().requires_grad_()
+    dyr = dy.permute(0, 3, 1, 2)
+
+    def fwd():
+        y = F.group_norm(xr, g, sc, bi, eps=1e-5)
+        return F.silu(y) if silu else y
+
+    with torch.enable_grad():
+        both = cuda_time_ms(lambda: torch.autograd.grad(fwd(), (xr, sc, bi), dyr))
+        return both - cuda_time_ms(fwd)
 
 
 def bound(name, args):
@@ -160,7 +221,23 @@ def bound(name, args):
     n, es = x.numel(), x.element_size()
     b, c = x.shape[0], x.shape[-1]
     small = sum(a.numel() * a.element_size() for a in args[1:] if isinstance(a, torch.Tensor))
-    if name in ("adagn_silu", "groupnorm_silu"):  # small: the FiLM rows or the affine
+    if name == "groupnorm_silu_bwd":  # x, dy, scale, bias -> dx, dscale, dbias (f32)
+        # f32 element counts: statistics 3, x̂ and o 4, SiLU' 8, the sums 8, dx 5
+        ops = n * 28
+        byts = 3 * n * es + sum(a.numel() * a.element_size() for a in args[2:4]) + 2 * c * 4
+        kind = "f32_simt"
+    elif name == "conv3x3_wgrad":  # x, dy -> dW in x's dtype
+        dy = args[1]
+        cout = dy.shape[-1]
+        ops = 2 * (n // c) * 9 * c * cout
+        byts = n * es + dy.numel() * es + 9 * c * cout * es
+        kind = "bf16_tensor"
+    elif name == "conv3x3_dgrad":  # dy, w (3, 3, Cin, Cout) -> dx (B, H, W, Cin)
+        w = args[1]
+        ops = 2 * (n // c) * 9 * w.shape[2] * c
+        byts = n * es + w.numel() * w.element_size() + (n // c) * w.shape[2] * es
+        kind = "bf16_tensor"
+    elif name in ("adagn_silu", "groupnorm_silu"):  # small: the FiLM rows or the affine
         silu = args[-1]
         ops = n * (3 + 4 + 4 * silu)
         byts = 2 * n * es + small
@@ -209,6 +286,19 @@ def make_inputs(name, sig, dtype, gen):
 
     dev = "cuda"
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    if name == "conv3x3_wgrad":
+        shape, cout, _ = sig
+        return (rnd(*shape).to(dtype), rnd(*shape[:3], cout).to(dtype))
+    if name == "conv3x3_dgrad":  # the K3 call's signature: dy's shape and the conv's Cin
+        shape, cin = sig[:2]
+        w = ((torch.rand((3, 3, cin, shape[-1]), generator=gen, device=dev) * 2 - 1)
+             / (9 * cin) ** 0.5).to(dtype)
+        return (rnd(*shape).to(dtype), w)
+    if name == "groupnorm_silu_bwd":
+        shape, _, silu = sig
+        c = shape[-1]
+        return ((2 * rnd(*shape) + 0.5).to(dtype), rnd(*shape).to(dtype), 1 + 0.1 * rnd(c),
+                0.1 * rnd(c), max(1, c // 32), silu)
     if name == "conv3x3":
         shape, cout, stride, has_bias, _ = sig
         x = rnd(*shape).to(dtype)
@@ -263,8 +353,12 @@ def plain_args(name, args):
 def norm_launch(name, args) -> tuple:
     """(n, blocks) of a norm kernel's launch plan on the rollout's inputs, as this card
     launches it: the blocks per sample's cluster and the grid."""
-    from diamond_tpu_torch.ops.fused_norms import launch_plan
+    from diamond_tpu_torch.ops.fused_norms import launch_plan, placed_bwd_plan
 
+    if name == "groupnorm_silu_bwd":
+        x, g = args[0], args[4]
+        p = placed_bwd_plan(launch_plan(x, g, name), x.device.index)
+        return p.n, p.blocks
     x, g = args[0], args[2] if name.startswith("adagn") else args[3]
     p = launch_plan(x, g, name, name.endswith("_q8"))
     return p.n, p.blocks
@@ -278,6 +372,10 @@ def conv_blocks(name, args) -> int:
 
     x = args[0]
     b, h, w, cin = x.shape
+    if name == "conv3x3_wgrad":
+        return conv_plan.wgrad_plan(b, h, w, cin, args[1].shape[-1]).grid
+    if name == "conv3x3_dgrad":
+        return conv_plan.k3_plan(b, h, w, cin, args[1].shape[2], 1).grid
     if name == "conv3x3_int8":
         return conv_plan.k5_plan(b, h, w, cin, args[1].shape[-1], args[5],
                                  x.dtype == torch.int8).grid
@@ -291,6 +389,21 @@ def compare_one(name, kernel, plain, args, dt_name):
 
     y, ref = kernel(*args), plain(*plain_args(name, args))
     torch.cuda.synchronize()
+    if name in ("groupnorm_silu_bwd", "conv3x3_wgrad"):  # a fixed order: the same bits again
+        again = kernel(*args)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(*(
+            (v,) if isinstance(v, torch.Tensor) else v for v in (y, again)))),
+            f"{name} {dt_name}: two calls differ")
+    if name == "groupnorm_silu_bwd":  # dx, dscale, dbias
+        err = 0.0
+        for part, a, r, tol in zip(("dx", "dscale", "dbias"), y, ref, TOL[dt_name][name]):
+            scale = max(1.0, r.float().abs().max().item())
+            e = (a.float() - r.float()).abs().max().item()
+            check(bool(torch.isfinite(a).all()) and e <= tol * scale,
+                  f"{name} {dt_name} {part}: max abs err {e} > {tol} * {scale}")
+            err = max(err, e)
+        return err
     if name in ("adagn_silu_q8", "groupnorm_silu_q8"):
         # the static epilogue equals quantize(K1/K2 kernel output) code for code
         base = ops.adagn_silu if name == "adagn_silu_q8" else ops.groupnorm_silu
@@ -305,10 +418,12 @@ def compare_one(name, kernel, plain, args, dt_name):
     return e
 
 
-def compare_kernels(shapes, launches, num_rollouts):
+def compare_kernels(shapes, launches, runs):
     """Each kernel against its plain version at the recorded signatures of its path
-    (as the rollout ran them, and the same shapes in f32), timed, with its bound and
-    library yardstick; times and bounds per rollout weight each signature by its calls.
+    (as the path ran them, and the same shapes in f32), timed, with its bound and
+    library yardstick; times and bounds per rollout (per AC step for the backward
+    kernels: ``runs`` holds the rollouts or steps each path's counts were taken over)
+    weight each signature by its calls.
     K4's per-sample epilogue runs at the int8 path's AdaGN shapes. Returns the JSON
     rows and the per-signature details."""
     import torch
@@ -325,6 +440,7 @@ def compare_kernels(shapes, launches, num_rollouts):
                    library_ms=0.0, ms_where_library=0.0, cudnn_bf16_ms=0.0,
                    per_sample_ms=0.0, per_sample_plain_ms=0.0)
         has_library = False
+        num_rollouts = runs[path]
         for sig, count in sorted(shapes[path][name].items(), key=lambda kv: str(kv[0])):
             run_dtype = sig[-1] if name.startswith("conv") else sig[1]  # as the path ran it
             for dt_name in ("bfloat16", "float32"):
@@ -347,9 +463,10 @@ def compare_kernels(shapes, launches, num_rollouts):
                     tot["ops_ms"] += w * t_o
                     tot["bound_ms"] += w * max(t_b, t_o)
                     lib = library_call(name, args)
-                    if lib is not None:
+                    if lib is not None or name == "groupnorm_silu_bwd":
                         has_library = True
-                        row["library_ms"] = cuda_time_ms(lib)
+                        row["library_ms"] = (gn_autograd_ms(args) if lib is None
+                                             else cuda_time_ms(lib))
                         tot["library_ms"] += w * row["library_ms"]
                         tot["ms_where_library"] += w * t_k
                     if name == "conv3x3_int8":
@@ -398,6 +515,7 @@ def compare_kernels(shapes, launches, num_rollouts):
                      library_ms=tot["library_ms"] if has_library else None,
                      max_abs_err_f32=err["float32"], path=path,
                      launches_by_path={p: launches[p][name] for p in launches},
+                     per="AC step" if path == "ac_step" else "rollout",
                      shapes=len(shapes[path][name]))
         if has_library and name == "groupnorm_silu":
             entry["library_covers"] = "silu=False calls only"
@@ -484,17 +602,18 @@ def reference_check(agent, st, pool, wm_cfg, int8_sites=None):
     return dict(max_logit_value_diff=err, frame_max_levels=int(d.max()), frame_share=share)
 
 
-def profile_rollout(engine, st, pool, gen, label) -> dict:
-    """One rollout under torch.profiler: device busy time (the sum of its kernels' times;
-    one stream, so they do not overlap) against the wall time, and the kernels by time.
-    The profiler slows the host, so the idle share it shows is an upper bound."""
+def profile_run(fn, label, what) -> dict:
+    """One ``fn()`` (a rollout, or an AC step) under torch.profiler: device busy time (the
+    sum of its kernels' times; one stream, so they do not overlap) against the wall time,
+    the kernel launch calls, and the kernels by time. The profiler slows the host, so the
+    idle share it shows is an upper bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.rollout(st, pool, HORIZON, generator=gen)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -505,7 +624,7 @@ def profile_rollout(engine, st, pool, gen, label) -> dict:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / f"chip_smoke_profile_{label}.txt").write_text(
         events.table(sort_by="self_device_time_total", row_limit=40))
-    log(f"[profile] {label} rollout: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms "
+    log(f"[profile] {label} {what}: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms "
         f"(idle {100 * (1 - busy_ms / wall_ms):.1f} %), {launches} kernel launch calls "
         f"(cudaLaunchKernel + cudaLaunchKernelExC)")
     for e in kernels[:8]:
@@ -521,9 +640,7 @@ def drive(engine, st, pool, gen, label, smi):
     import torch
     from diamond_tpu_torch import ops
 
-    for name in KERNELS:
-        getattr(ops, name).launches = 0
-        getattr(ops, name).shapes.clear()
+    count_reset()
     traj, st, pool = engine.rollout(st, pool, HORIZON, generator=gen)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -573,9 +690,9 @@ def set_int8(nets, colls, on: bool) -> None:
         quant.install(n, c if on else {})
 
 
-def sync_points(engine, st, pool, gen) -> dict:
-    """One rollout under torch.cuda's sync debug mode: the host-device synchronisations
-    it makes, by the line of Python that made them."""
+def sync_points(fn) -> dict:
+    """One ``fn()`` (a rollout, or an AC step) under torch.cuda's sync debug mode: the
+    host-device synchronisations it makes, by the line of Python that made them."""
     import warnings
 
     import torch
@@ -584,7 +701,7 @@ def sync_points(engine, st, pool, gen) -> dict:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            engine.rollout(st, pool, HORIZON, generator=gen)
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -649,6 +766,165 @@ def int8_vs_bf16_step(engine, agent, st, gen) -> dict:
     return out
 
 
+def count_reset() -> None:
+    from diamond_tpu_torch import ops
+
+    for name in KERNELS:
+        getattr(ops, name).launches = 0
+        getattr(ops, name).shapes.clear()
+
+
+def ac_step_phase(engine, agent, st, pool, gen, smi):
+    """The actor-critic train step as the trainer calls it (training.make_ac_train_step
+    with the trainer config's optimizer and loss, warmup 0 so the first step moves the
+    weights), on the int8-calibrated world model: counts set to 0, one warm-up step and
+    AC_STEPS timed ones, counts read; then one step profiled and one under the sync debug
+    mode. Returns (st, pool, signatures, result)."""
+    from dataclasses import replace
+
+    import torch
+    from diamond_tpu_torch import ops
+    from diamond_tpu_torch.config import TrainerConfig
+    from diamond_tpu_torch.training import OptimizerSpec, TrainState, make_ac_train_step
+
+    tcfg = TrainerConfig().actor_critic
+    spec = replace(OptimizerSpec.from_cfg(tcfg.optimizer, tcfg.training), lr_warmup_steps=0)
+    tx = spec.build()
+    ac = agent.actor_critic
+    state = TrainState.create(ac.net, tx)
+    step = make_ac_train_step(engine, ac, tx, tcfg.actor_critic_loss)
+    wm = [agent.denoiser.inner_model, agent.rew_end_model.net]
+    wm_before = [{n: p.detach().clone() for n, p in net.named_parameters()} for net in wm]
+    ac_before = {n: p.detach().clone() for n, p in ac.net.named_parameters()}
+    horizon = tcfg.actor_critic_loss.backup_every
+
+    count_reset()
+    state, st, pool, m = step(state, st, pool, generator=gen)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(v)) for v in m.values()), f"AC step: non-finite metrics {m}")
+    moved = sum(not torch.equal(p.detach(), ac_before[n]) for n, p in ac.net.named_parameters())
+    check(moved == len(ac_before), f"AC step: {len(ac_before) - moved} actor-critic tensors "
+          "did not change")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(AC_STEPS):
+        state, st, pool, m = step(state, st, pool, generator=gen)
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / AC_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: getattr(ops, name).launches for name in KERNELS}
+    shapes = {name: dict(getattr(ops, name).shapes) for name in KERNELS}
+    metrics = {k: v.item() for k, v in m.items()}
+    check(all(map(math.isfinite, metrics.values())), f"AC step: non-finite metrics {metrics}")
+    for name in BACKWARD:
+        check(launches[name] > 0, f"{name} was not launched by the AC step")
+    for net, before in zip(wm, wm_before):
+        for n, p in net.named_parameters():
+            check(p.grad is None and torch.equal(p.detach(), before[n]),
+                  f"AC step: world-model parameter {n} changed or has a gradient")
+    fps = BATCH * horizon / secs
+    log(f"[ac_step] B={BATCH} T={horizon}, int8 world model, bf16 actor-critic: "
+        f"{secs * 1e3:.1f} ms per step, {fps:.1f} training env_frames/s over {AC_STEPS} steps "
+        f"after one warm-up, peak memory {peak / 2**30:.2f} GiB, on {smi}")
+    log(f"[ac_step] metrics of the last step: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in metrics.items()))
+    log(f"[launches] ac_step, over {1 + AC_STEPS} steps: {launches}")
+    with torch.no_grad():
+        moved = max((p - ac_before[n]).abs().max().item() for n, p in ac.net.named_parameters())
+
+    profile = profile_run(lambda: step(state, st, pool, generator=gen), "ac_step", "AC step")
+    syncs = sync_points(lambda: step(state, st, pool, generator=gen))
+    log(f"[sync] AC step: {sum(syncs.values())} host-device synchronisations {syncs}")
+    return st, pool, shapes, dict(step_ms=secs * 1e3, fps=fps, peak_memory_bytes=peak,
+                                  launches=launches, metrics=metrics, profile=profile,
+                                  sync_points=syncs, max_weight_change=moved,
+                                  steps=1 + AC_STEPS)
+
+
+def ac_gradient_check(agent):
+    """The actor-critic's trunk + head gradient of a probe loss on the same full-size
+    frames and carries, f32 with TF32 off: the card (K2's backward, K3's data and weight
+    gradients) against the CPU's plain path. Every parameter's gradient within 1e-3 of
+    the CPU leaf's largest |value|."""
+    import torch
+    from diamond_tpu_torch.models.actor_critic import ActorCritic
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = agent.cfg.actor_critic
+    g = torch.Generator().manual_seed(SEED + 3)
+    b = 4
+    obs = torch.rand((b, cfg.img_size, cfg.img_size, cfg.img_channels), generator=g) * 2 - 1
+    hx, cx, u_h = (torch.randn((b, cfg.lstm_dim), generator=g) for _ in range(3))
+    u_l, u_v = torch.randn((b, cfg.num_actions), generator=g), torch.randn((b,), generator=g)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        ac = ActorCritic(cfg, torch.float32)
+        ac.net.load_state_dict(agent.actor_critic.net.state_dict())
+        ac.net.to(dev)
+        out = ac.head(ac.encode(obs.to(dev)), (hx.to(dev), cx.to(dev)))
+        ((out.logits_act * u_l.to(dev)).sum() + (out.val * u_v.to(dev)).sum()
+         + (out.carry[0] * u_h.to(dev)).sum()).backward()
+        grads.append({n: p.grad.cpu() for n, p in ac.net.named_parameters()})
+    worst = 0.0
+    for n, ref in grads[1].items():
+        share = (grads[0][n] - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+        check(share <= 1e-3,
+              f"AC gradient check: {n} differs by {share:.3g} of its largest |value|")
+        worst = max(worst, share)
+    log(f"[reference] AC trunk+head gradient, f32 card vs CPU plain, B={b} at "
+        f"{cfg.img_size}x{cfg.img_size}: every parameter within {worst:.3g} of its largest "
+        f"|value| (limit 1e-3)")
+    return dict(max_leaf_share=worst)
+
+
+def ac_step_reference(agent, st, pool, wm_cfg):
+    """A B=2, T=2 f32 AC-step loss and gradient (training.ac_rollout_loss + backward) at
+    full width, on the card (kernels, TF32 off) and on the CPU (plain versions), same
+    weights and draws, the world model unquantized, pool features encoded per reset.
+    Actions, rewards and ends equal, loss within 1e-3; the largest relative gradient
+    difference and the frames' difference in grid levels are figures."""
+    import torch
+    from diamond_tpu_torch.config import ActorCriticLossConfig
+    from diamond_tpu_torch.envs.world_model_env import (ICPool, ImagState, ImaginationEngine,
+                                                        draw_rollout_noise)
+    from diamond_tpu_torch.models import Agent
+    from diamond_tpu_torch.training import ac_rollout_loss
+
+    b, t = 2, 2
+    loss_cfg = ActorCriticLossConfig(backup_every=t)
+    draws = draw_rollout_noise(t, b, tuple(st.obs_buffer.shape[2:]), agent.cfg.num_actions,
+                               torch.Generator().manual_seed(SEED + 4), torch.device("cpu"))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        a = Agent(agent.cfg, torch.float32, device=dev)
+        for name, net in a.nets.items():
+            net.load_state_dict(agent.nets[name].state_dict())
+        eng = ImaginationEngine(a.denoiser, a.rew_end_model, a.actor_critic, wm_cfg)
+        s = ImagState(**{k: getattr(st, k)[:b].to(dev) for k in st.__dataclass_fields__})
+        p = ICPool(obs=pool.obs[:8].to(dev), act=pool.act[:8].to(dev), hx=pool.hx[:8].to(dev),
+                   cx=pool.cx[:8].to(dev), ptr=torch.zeros((), dtype=torch.long, device=dev))
+        loss, _, s, _, traj = ac_rollout_loss(eng, a.actor_critic, loss_cfg, s, p,
+                                              type(draws)(*(d.to(dev) for d in draws)))
+        loss.backward()
+        outs.append((loss.item(), {k: v.detach().cpu() for k, v in traj.items()},
+                     s.obs_buffer.cpu(),
+                     {n: q.grad.cpu() for n, q in a.actor_critic.net.named_parameters()}))
+    (lg, tg, og, gg), (lc, tc, oc, gc) = outs
+    for k in ("act", "rew", "end"):
+        check(torch.equal(tg[k], tc[k]), f"AC step reference: {k} differs card vs CPU")
+    check(abs(lg - lc) <= 1e-3 * max(1.0, abs(lc)), f"AC step reference: loss {lg} vs {lc}")
+    rel = max((gg[n] - gc[n]).abs().max().item() / max(gc[n].abs().max().item(), 1e-30)
+              for n in gc)
+    d = (og.long() - oc.long()).abs()
+    log(f"[reference] AC step B={b} T={t} f32 card vs CPU plain: actions/rewards/ends equal, "
+        f"loss {lg:.6g} vs {lc:.6g}; largest gradient difference {rel:.3g} of its leaf's "
+        f"largest |value|, frames off by up to {int(d.max())} level(s) in "
+        f"{(d > 0).float().mean().item():.4%} of values")
+    return dict(loss_card=lg, loss_cpu=lc, max_grad_share=rel, frame_max_levels=int(d.max()),
+                frame_share=(d > 0).float().mean().item())
+
+
 def num_sites(coll: dict) -> int:
     return sum(num_sites(v) if isinstance(v, dict) else k == "act_scale" for k, v in coll.items())
 
@@ -670,6 +946,8 @@ def main() -> int:
     from diamond_tpu_torch.ops import quant
 
     dev = torch.device("cuda")
+    # the rollouts serve and are measured with no grad; the AC step enables it itself
+    torch.set_grad_enabled(False)
     t0 = time.perf_counter()
     how = "found built" if kernels.library_path().exists() else "built"
     lib_path = kernels.build()
@@ -722,7 +1000,8 @@ def main() -> int:
     sanity(traj, st, pool, ptr_before, cfg.num_actions)
     results["bf16"]["other_branch_fps"] = other_branch(engine, st, pool, rgen, cfg.num_actions,
                                                        "bf16")
-    results["bf16"]["profile"] = profile_rollout(engine, st, pool, rgen, "bf16")
+    results["bf16"]["profile"] = profile_run(
+        lambda: engine.rollout(st, pool, HORIZON, generator=rgen), "bf16", "rollout")
 
     # calibration on the live buffers (bench.py:131-136), then the int8 path
     t0 = time.perf_counter()
@@ -740,23 +1019,31 @@ def main() -> int:
     results["int8"]["calibration_s"] = calib_s
     results["int8"]["other_branch_fps"] = other_branch(engine, st, pool, rgen, cfg.num_actions,
                                                        "int8")
-    results["int8"]["profile"] = profile_rollout(engine, st, pool, rgen, "int8")
+    results["int8"]["profile"] = profile_run(
+        lambda: engine.rollout(st, pool, HORIZON, generator=rgen), "int8", "rollout")
     log(f"[rollout] imagination_fps_batch32_n3: int8 {results['int8']['fps']:.1f} vs bf16 "
         f"{results['bf16']['fps']:.1f} env_frames/s on {smi}")
     colls = [quant.collection(agent.denoiser.inner_model), quant.collection(agent.rew_end_model.net)]
     results["alternate"] = alternate(engine, agent, colls, st, pool, rgen)
     for label in ("bf16", "int8"):
         set_int8([agent.denoiser.inner_model, agent.rew_end_model.net], colls, label == "int8")
-        results[label]["sync_points"] = sync_points(engine, st, pool, rgen)
+        results[label]["sync_points"] = sync_points(
+            lambda: engine.rollout(st, pool, HORIZON, generator=rgen))
         log(f"[sync] {label} rollout: {sum(results[label]['sync_points'].values())} host-device "
             f"synchronisations {results[label]['sync_points']}")
     results["int8_vs_bf16_step"] = int8_vs_bf16_step(engine, agent, st, rgen)
 
-    launches = {p: results[p]["launches"] for p in ("bf16", "int8")}
-    rows, details = compare_kernels(shapes, launches, 1 + TIMED_ROLLOUTS)
+    # the actor-critic train step on the int8-calibrated world model
+    st, pool, shapes["ac_step"], results["ac_step"] = ac_step_phase(engine, agent, st, pool,
+                                                                    rgen, smi)
+
+    launches = {p: results[p]["launches"] for p in ("bf16", "int8", "ac_step")}
+    runs = {"bf16": 1 + TIMED_ROLLOUTS, "int8": 1 + TIMED_ROLLOUTS,
+            "ac_step": results["ac_step"]["steps"]}
+    rows, details = compare_kernels(shapes, launches, runs)
     for r in rows:
         log(f"[kernel] {r['name']}: {r['launches']} launches on the {r['path']} path, "
-            f"{r['shapes']} shapes, {r['ms']:.2f} ms of device time per rollout (plain "
+            f"{r['shapes']} shapes, {r['ms']:.2f} ms of device time per {r['per']} (plain "
             f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.2f} ms by {r['bound_by']}"
             + (f", library {r['library_ms']:.2f} ms" if r["library_ms"] is not None else "")
             + (f"; on the {r['library_covers']}: kernel {r['ms_where_library']:.2f} ms, library "
@@ -764,6 +1051,9 @@ def main() -> int:
             + ")")
     results["reference_bf16"] = reference_check(agent, st, pool, wm_cfg)
     results["reference_int8"] = reference_check(agent, st, pool, wm_cfg, rt.int8_sites)
+    with torch.enable_grad():
+        results["reference_ac_gradient"] = ac_gradient_check(agent)
+        results["reference_ac_step"] = ac_step_reference(agent, st, pool, wm_cfg)
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(

@@ -1,7 +1,8 @@
 """The full-size default configuration, as dataclass defaults.
 
 These carry the values of diamond_tpu/configs/agent/default.yaml (the DIAMOND Atari
-agent), the ``world_model_env`` section of diamond_tpu/configs/trainer.yaml, the Atari
+agent), the ``world_model_env`` section of diamond_tpu/configs/trainer.yaml and its
+three models' ``training``/``optimizer`` sections with the actor-critic loss, the Atari
 frame size (configs/env/atari.yaml ``train.size``) and the ``tpu`` options the port
 honours. The port reads no YAML: its machine may have no PyYAML, and a test holds these
 defaults equal to ``diamond_tpu.config.load_config("trainer")``.
@@ -97,6 +98,74 @@ class AgentConfig:
         self.denoiser.inner_model.num_actions = self.num_actions
         self.rew_end_model.num_actions = self.num_actions
         self.actor_critic.num_actions = self.num_actions
+
+
+@dataclass
+class ActorCriticLossConfig:
+    """trainer.yaml ``actor_critic.actor_critic_loss`` (models/actor_critic.py)."""
+
+    backup_every: int = 15
+    gamma: float = 0.985
+    lambda_: float = 0.95
+    weight_value_loss: float = 1.0
+    weight_entropy_loss: float = 0.001
+
+
+@dataclass
+class OptimizerConfig:
+    """trainer.yaml ``<model>.optimizer``: AdamW (models/agent.py ``configure_opt``)."""
+
+    lr: float = 1e-4
+    weight_decay: float = 0.0
+    eps: float = 1e-8
+
+
+@dataclass
+class TrainingConfig:
+    """trainer.yaml ``<model>.training``; ``num_autoregressive_steps`` is the denoiser's
+    alone and ``seq_length`` (horizon + conditioning frames) the rew/end model's."""
+
+    batch_size: int = 32
+    lr_warmup_steps: int = 100
+    max_grad_norm: Optional[float] = 100.0
+    grad_acc_steps: int = 1
+    start_after_epochs: int = 0
+    steps_first_epoch: int = 10000
+    steps_per_epoch: int = 400
+    sample_weights: List[float] = field(default_factory=lambda: [0.1, 0.1, 0.1, 0.7])
+    num_autoregressive_steps: Optional[int] = None
+    seq_length: Optional[int] = None
+
+
+@dataclass
+class ActorCriticTrainerConfig:
+    training: TrainingConfig = field(
+        default_factory=lambda: TrainingConfig(steps_first_epoch=5000))
+    actor_critic_loss: ActorCriticLossConfig = field(default_factory=ActorCriticLossConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+
+
+@dataclass
+class DenoiserTrainerConfig:
+    training: TrainingConfig = field(default_factory=lambda: TrainingConfig(
+        max_grad_norm=1.0, num_autoregressive_steps=1))
+    optimizer: OptimizerConfig = field(default_factory=lambda: OptimizerConfig(weight_decay=1e-2))
+
+
+@dataclass
+class RewEndTrainerConfig:
+    training: TrainingConfig = field(default_factory=lambda: TrainingConfig(seq_length=19))
+    optimizer: OptimizerConfig = field(default_factory=lambda: OptimizerConfig(weight_decay=1e-2))
+
+
+@dataclass
+class TrainerConfig:
+    """The trainer.yaml sections of the three train steps (``denoiser``,
+    ``rew_end_model``, ``actor_critic``: training and optimizer values, and the AC loss)."""
+
+    denoiser: DenoiserTrainerConfig = field(default_factory=DenoiserTrainerConfig)
+    rew_end_model: RewEndTrainerConfig = field(default_factory=RewEndTrainerConfig)
+    actor_critic: ActorCriticTrainerConfig = field(default_factory=ActorCriticTrainerConfig)
 
 
 @dataclass

@@ -1,12 +1,13 @@
-"""Imagination MDP on the card: the world model as an environment, forward pass
+"""Imagination MDP on the card: the world model as an environment
 (diamond_tpu/envs/world_model_env.py).
 
 One rollout step: policy step (conv trunk carried from the previous step, LSTMCell,
 heads) -> diffusion sampler (``num_steps_denoising`` U-Net forwards) -> reward/end LSTM
 step -> uint8 frame-buffer roll -> masked resets of dead envs from the initial-condition
-pool, with the policy LSTM burned in over the new context. The world model runs with no
-grad, and this slice is the whole rollout under ``torch.no_grad()``; the gradient into
-the actor-critic comes with the training slice.
+pool, with the policy LSTM burned in over the new context. The world model always runs
+with no grad; the policy's trunk, heads and burn-in carry the gradient into the
+actor-critic (the AC train step, training.py), and the bootstrap values are detached.
+A caller that only serves or measures the rollout runs it under ``torch.no_grad()``.
 
 Every random draw of a rollout (the sampler's initial latents and the Gumbel noise of
 the action, reward and end draws: categorical(logits) = argmax(logits + Gumbel)) is one
@@ -183,12 +184,14 @@ class ImaginationEngine:
 
     # -- rollout ------------------------------------------------------------------
 
-    @torch.no_grad()
     def rollout(self, st: ImagState, pool: ICPool, num_steps: int,
                 draws: Optional[RolloutDraws] = None,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[Dict[str, torch.Tensor], ImagState, ICPool]:
-        """Roll ``num_steps`` of imagination with the policy in the loop.
+        """Roll ``num_steps`` of imagination with the policy in the loop; where grad is
+        enabled, ``logits_act`` and ``val`` carry the gradient into the actor-critic's
+        parameters, and nothing else does (the world model, the bootstrap values and
+        the returned state are detached).
 
         Returns (trajectory dict of (B, T) tensors, new state, new pool). Without
         ``draws`` the random numbers come from ``generator``."""
@@ -214,9 +217,11 @@ class ImaginationEngine:
                 st, act, draws.x_init[t], draws.gumbel_rew[t], draws.gumbel_end[t])
             dead = (end + trunc) > 0
 
-            # value of the final obs with the pre-reset policy carry
+            # value of the final obs with the pre-reset policy carry, no grad (its
+            # features feed the next step's main eval, with grad)
             feat_next = ac.encode(next_obs)
-            val_final = ac.head(feat_next, out.carry).val
+            with torch.no_grad():
+                val_final = ac.head(feat_next, out.carry).val
 
             st2 = replace(st2, ac_hx=out.carry[0], ac_cx=out.carry[1])
             st2, pool, ic_idx = self._reset_dead(st2, pool, dead)
@@ -238,10 +243,14 @@ class ImaginationEngine:
             st = st2
 
         traj = {k: torch.stack([y[k] for y in ys], dim=1) for k in ys[0]}
-        # bootstrap values: the next step's value, or the final-obs value where the env died
-        val_extra = ac.head(feat_cur, (st.ac_hx, st.ac_cx)).val
-        val_next = torch.cat([traj["val"][:, 1:], val_extra[:, None]], dim=1)
+        # bootstrap values, detached: the next step's value, or the final-obs value where
+        # the env died
+        with torch.no_grad():
+            val_extra = ac.head(feat_cur, (st.ac_hx, st.ac_cx)).val
+        val_next = torch.cat([traj["val"][:, 1:].detach(), val_extra[:, None]], dim=1)
         traj["val_bootstrap"] = torch.where(traj["dead"], traj["val_final"], val_next)
+        # the next rollout starts from this carry without backpropagating into this one
+        st = replace(st, ac_hx=st.ac_hx.detach(), ac_cx=st.ac_cx.detach())
         return traj, st, pool
 
     # -- initial state ------------------------------------------------------------

@@ -1,11 +1,16 @@
-"""Agent container: the three models, initialised from a ``torch.Generator``
-(diamond_tpu/models/agent.py without optimizers and checkpoint IO, which come with the
-training slice). The models live on the card unless the caller asks for another
-device (the CPU tests pass ``device="cpu"``)."""
+"""Agent container: the three models, initialised from a ``torch.Generator``, and the
+optimizer (diamond_tpu/models/agent.py without checkpoint IO, which comes with the
+trainer). The models live on the card unless the caller asks for another device (the
+CPU tests pass ``device="cpu"``).
+
+``configure_opt`` is the JAX package's optax chain: global-norm clipping, then AdamW
+with the minGPT decay split as a mask on the parameter names (the flax paths) and a
+linear warmup from 0.
+"""
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import torch
 import torch.nn as nn
@@ -40,3 +45,72 @@ class Agent:
         variable paths of the JAX package's model of that name)."""
         return {"denoiser": self.denoiser.inner_model, "rew_end_model": self.rew_end_model.net,
                 "actor_critic": self.actor_critic.net}
+
+
+# ---------------------------------------------------------------------------
+# Optimizer
+
+
+def decay_mask(name: str) -> bool:
+    """Weight-decay exactly the matmul weights (the JAX package's ``_decay_mask``): a
+    parameter whose own name is ``kernel`` (conv and linear kernels; embeddings are
+    named ``embedding``) or starts with ``weight_`` (the LSTM's). Biases and norm
+    affines (``scale``, ``bias``) get no decay."""
+    leaf = name.rsplit(".", 1)[-1]
+    return leaf == "kernel" or leaf.startswith("weight_")
+
+
+class AdamWClip:
+    """optax.chain(clip_by_global_norm(max_grad_norm), adamw(linear_schedule(0, lr,
+    lr_warmup_steps), b1=0.9, b2=0.999, eps, weight_decay, mask=_decay_mask)), built by
+    ``configure_opt``: ``init`` makes the torch optimizer of a module (``torch.optim.AdamW``,
+    decoupled decay, eps outside the square root, one parameter group with decay and one
+    without), ``update`` applies one step of the chain to the gradients in ``.grad``."""
+
+    def __init__(self, lr: float, weight_decay: float, eps: float,
+                 max_grad_norm: Optional[float] = None, lr_warmup_steps: int = 0) -> None:
+        self.lr, self.weight_decay, self.eps = lr, weight_decay, eps
+        self.max_grad_norm, self.lr_warmup_steps = max_grad_norm, lr_warmup_steps
+
+    def lr_at(self, step: int) -> float:
+        """The learning rate of update ``step`` (0-based): optax's linear schedule from 0."""
+        if self.lr_warmup_steps > 0:
+            return self.lr * min(step, self.lr_warmup_steps) / self.lr_warmup_steps
+        return self.lr
+
+    def init(self, net: nn.Module) -> torch.optim.AdamW:
+        named = list(net.named_parameters())
+        groups = [{"params": [p for n, p in named if decay_mask(n)],
+                   "weight_decay": self.weight_decay},
+                  {"params": [p for n, p in named if not decay_mask(n)], "weight_decay": 0.0}]
+        return torch.optim.AdamW([g for g in groups if g["params"]], lr=self.lr,
+                                 betas=(0.9, 0.999), eps=self.eps)
+
+    def update(self, opt: torch.optim.AdamW, step: int) -> torch.Tensor:
+        """Clip the gradients to ``max_grad_norm`` by their global norm, step the
+        optimizer at ``lr_at(step)`` and clear the gradients. A parameter without a
+        gradient counts as a zero gradient, as in optax. Returns the global norm before
+        clipping, on the device; nothing here waits for the device."""
+        params: List[torch.Tensor] = [p for g in opt.param_groups for p in g["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if self.max_grad_norm is not None:
+            # optax: g where norm < max, else g / norm * max
+            scale = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
+                                self.max_grad_norm / norm)
+            torch._foreach_mul_(grads, scale)
+        for g in opt.param_groups:
+            g["lr"] = self.lr_at(step)
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return norm
+
+
+def configure_opt(lr: float, weight_decay: float, eps: float,
+                  max_grad_norm: Optional[float] = None,
+                  lr_warmup_steps: int = 0) -> AdamWClip:
+    """AdamW with masked weight decay, global-norm clipping and linear LR warmup."""
+    return AdamWClip(lr, weight_decay, eps, max_grad_norm, lr_warmup_steps)

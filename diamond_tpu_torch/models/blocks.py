@@ -12,6 +12,10 @@ them from a ``torch.Generator`` with the initialisers the JAX package mirrors
 
 Both norms run through the fused kernels (ops/fused_norms.py) and every 3x3 conv through
 the implicit-GEMM kernel (ops/conv3x3.py), as blocks.py does under DIAMOND_TPU_PALLAS=1.
+GroupNorm (K2) and the stride-1 3x3 conv (K3) are differentiable through backward
+kernels, so Conv3x3, GroupNorm, SmallResBlock and Conv1x1 pass gradients to their f32
+parameters through the casts to ``dtype``, as the JAX blocks do (in bf16 their weight
+gradients pass through bf16). AdaGroupNorm (K1) and stride-2 convs have no backward yet.
 
 The static int8 rollout (ops/quant.py): Conv3x3, Conv1x1, QDense (and the LSTM cell)
 are sites with three cases inside an int8 scope: calibrating (record the input range,

@@ -11,7 +11,14 @@ bf16 runs the halo-tile wgmma kernel (``kernels/csrc/conv_halo.cuh``) on the lau
 of ``conv_plan.k3_plan`` for every shape, Cin = 3, 6 and 12 included (zero-padded to 16
 channels in the kernel); f32 (the parity runs) runs the CUDA-core kernel.
 
-``conv3x3.launches`` counts kernel launches and ``conv3x3.shapes`` the call signatures.
+At stride 1 ``conv3x3`` is differentiable (``Conv3x3Fn``): the data gradient is K3
+itself on dy with the flipped, transposed kernel (``conv3x3_dgrad``), the weight
+gradient the hand-written kernel of ``kernels/csrc/conv3x3_wgrad.cu``
+(``conv3x3_wgrad``), each beside its plain version. The JAX package's convs get these
+from XLA's VJP of ``lax.conv``.
+
+``<wrapper>.launches`` counts kernel launches and ``<wrapper>.shapes`` the call
+signatures, for ``conv3x3``, ``conv3x3_dgrad`` and ``conv3x3_wgrad`` apart.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from .conv_plan import k3_plan
+from .conv_plan import k3_plan, wgrad_f32_split, wgrad_plan
 
 
 def conv3x3_plain(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None,
@@ -34,30 +41,26 @@ def conv3x3_plain(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Te
     return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
-def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None,
-            stride: int = 1) -> torch.Tensor:
-    """3x3 SAME conv: x (B, H, W, Cin), kernel (3, 3, Cin, Cout) in x's dtype, bias
-    (Cout,) or None. Output (B, (H-1)//stride+1, (W-1)//stride+1, Cout) in x's dtype."""
-    if x.device.type == "cpu":
-        return conv3x3_plain(x, kernel, bias, stride)
+def _conv3x3_launch(x, kernel, bias, stride, name):
+    """One K3 launch on x (CUDA), checked; returns (y, the call's signature)."""
     if x.device.type != "cuda":
-        raise ValueError(f"conv3x3: x must be a CPU or CUDA tensor, got {x.device}")
+        raise ValueError(f"{name}: x must be a CPU or CUDA tensor, got {x.device}")
     if x.dim() != 4 or not x.is_contiguous() or not kernel.is_contiguous():
-        raise ValueError("conv3x3: x (B, H, W, Cin) and kernel must be contiguous")
+        raise ValueError(f"{name}: x (B, H, W, Cin) and kernel must be contiguous")
     b, h, w, cin = x.shape
     if kernel.shape[:3] != (3, 3, cin) or kernel.dim() != 4:
-        raise ValueError(f"conv3x3: kernel must be (3, 3, {cin}, Cout), got {tuple(kernel.shape)}")
+        raise ValueError(f"{name}: kernel must be (3, 3, {cin}, Cout), got {tuple(kernel.shape)}")
     if kernel.dtype != x.dtype or kernel.device != x.device:
-        raise ValueError("conv3x3: kernel must have x's dtype and device")
+        raise ValueError(f"{name}: kernel must have x's dtype and device")
     if stride not in (1, 2):
-        raise ValueError(f"conv3x3: stride must be 1 or 2, got {stride}")
+        raise ValueError(f"{name}: stride must be 1 or 2, got {stride}")
     code = kernels.dtype_code(x.dtype)
     cout = kernel.shape[-1]
     if code == 1 and (x.data_ptr() % 16 or kernel.data_ptr() % 16):
-        raise ValueError("conv3x3: bf16 operands must be 16-byte aligned")
+        raise ValueError(f"{name}: bf16 operands must be 16-byte aligned")
     if bias is not None:
         if bias.shape != (cout,) or bias.device != x.device:
-            raise ValueError(f"conv3x3: bias must be ({cout},) on {x.device}")
+            raise ValueError(f"{name}: bias must be ({cout},) on {x.device}")
         bias = bias.float().contiguous()
     y = torch.empty((b, (h - 1) // stride + 1, (w - 1) // stride + 1, cout),
                     device=x.device, dtype=x.dtype)
@@ -71,11 +74,133 @@ def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor] 
             *ptrs, k3_plan(b, h, w, cin, cout, stride).c_ints, stream)
     else:
         code = kernels.lib().conv3x3_f32_fwd(*ptrs, b, h, w, cin, cout, stride, stream)
-    kernels.check(code, "conv3x3")
+    kernels.check(code, name)
+    return y, (tuple(x.shape), cout, stride, bias is not None, str(x.dtype))
+
+
+def _conv3x3_fwd(x, kernel, bias, stride):
+    """One K3 call outside autograd (the plain version on a CPU tensor)."""
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, kernel, bias, stride)
+    y, sig = _conv3x3_launch(x, kernel, bias, stride, "conv3x3")
     conv3x3.launches += 1
-    conv3x3.shapes[(tuple(x.shape), cout, stride, bias is not None, str(x.dtype))] += 1
+    conv3x3.shapes[sig] += 1
     return y
+
+
+class Conv3x3Fn(torch.autograd.Function):
+    """K3 with its gradient (stride 1): the forward is K3; the data gradient is K3 on dy
+    with the flipped, transposed kernel (``conv3x3_dgrad``), skipped where x needs no
+    gradient; the weight gradient is the K3 weight-gradient kernel (``conv3x3_wgrad``);
+    the bias gradient an f32 sum of dy. On CPU tensors each is its plain version."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias, stride):
+        if stride != 1:
+            raise ValueError("conv3x3: no gradient at stride 2 (K3's stride-2 data and "
+                             "weight gradients are not ported)")
+        ctx.save_for_backward(x, kernel)
+        ctx.has_bias = bias is not None
+        return _conv3x3_fwd(x, kernel, bias, stride)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, kernel = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = conv3x3_dgrad(dy, kernel) if ctx.needs_input_grad[0] else None
+        dw = conv3x3_wgrad(x, dy) if ctx.needs_input_grad[1] else None
+        db = (dy.sum(dim=(0, 1, 2), dtype=torch.float32)
+              if ctx.has_bias and ctx.needs_input_grad[2] else None)
+        return dx, dw, db, None
+
+
+def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None,
+            stride: int = 1) -> torch.Tensor:
+    """3x3 SAME conv: x (B, H, W, Cin), kernel (3, 3, Cin, Cout) in x's dtype, bias
+    (Cout,) or None. Output (B, (H-1)//stride+1, (W-1)//stride+1, Cout) in x's dtype.
+    Differentiable at stride 1: on a CUDA tensor that needs a gradient through
+    ``Conv3x3Fn``; under no grad, or where no input needs one, one K3 launch."""
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, kernel, bias, stride)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, kernel, bias)):
+        return Conv3x3Fn.apply(x, kernel, bias, stride)
+    return _conv3x3_fwd(x, kernel, bias, stride)
+
+
+def flip_kernel(kernel: torch.Tensor) -> torch.Tensor:
+    """w_t[ky, kx, co, ci] = w[2 - ky, 2 - kx, ci, co]: the kernel whose SAME stride-1
+    conv with dy is the data gradient of the conv with w."""
+    return kernel.flip(0, 1).transpose(2, 3).contiguous()
+
+
+def conv3x3_dgrad_plain(dy: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """dx of the stride-1 conv with ``kernel`` for the cotangent dy, in dy's dtype."""
+    return conv3x3_plain(dy, flip_kernel(kernel))
+
+
+def conv3x3_dgrad(dy: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """The data gradient of the stride-1 conv: K3 launched on dy (B, H, W, Cout) with
+    the flipped, transposed kernel (3, 3, Cout, Cin) in dy's dtype. Counted in
+    ``conv3x3_dgrad.launches``, not in K3's forward count."""
+    if dy.device.type == "cpu":
+        return conv3x3_dgrad_plain(dy, kernel)
+    y, sig = _conv3x3_launch(dy, flip_kernel(kernel.to(dy.dtype)), None, 1, "conv3x3_dgrad")
+    conv3x3_dgrad.launches += 1
+    conv3x3_dgrad.shapes[sig] += 1
+    return y
+
+
+def conv3x3_wgrad_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """dW (3, 3, Cin, Cout) of the stride-1 conv on x for the cotangent dy, f32 sums
+    rounded once to x's dtype."""
+    dw = torch.nn.grad.conv2d_weight(x.float().permute(0, 3, 1, 2),
+                                     (dy.shape[-1], x.shape[-1], 3, 3),
+                                     dy.float().permute(0, 3, 1, 2), padding=1)
+    return dw.permute(2, 3, 1, 0).to(x.dtype).contiguous()
+
+
+def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """dW[ky, kx, ci, co] = sum over b, y, x of x[b, y+ky-1, x+kx-1, ci] * dy[b, y, x, co]
+    (stride 1, SAME): x (B, H, W, Cin), dy (B, H, W, Cout) of x's dtype; dW in x's dtype.
+    One call of the K3 weight-gradient kernel (kernels/csrc/conv3x3_wgrad.cu: the
+    partials of a split of the pixels, then their fixed-order sum)."""
+    if x.device.type == "cpu":
+        return conv3x3_wgrad_plain(x, dy)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_wgrad: x must be a CPU or CUDA tensor, got {x.device}")
+    if (x.dim() != 4 or dy.dim() != 4 or dy.shape[:3] != x.shape[:3] or dy.dtype != x.dtype
+            or dy.device != x.device or not x.is_contiguous() or not dy.is_contiguous()):
+        raise ValueError("conv3x3_wgrad: x (B, H, W, Cin) and dy (B, H, W, Cout) must be "
+                         "contiguous, of one dtype and device")
+    code = kernels.dtype_code(x.dtype)
+    b, h, w, cin = x.shape
+    cout = dy.shape[-1]
+    dw = torch.empty((3, 3, cin, cout), device=x.device, dtype=x.dtype)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if code == 1:
+        if x.data_ptr() % 16 or dy.data_ptr() % 16:
+            raise ValueError("conv3x3_wgrad: bf16 operands must be 16-byte aligned")
+        plan = wgrad_plan(b, h, w, cin, cout)
+        part = torch.empty((plan.kblocks, 9, plan.slices * 16, cout), device=x.device,
+                           dtype=torch.float32)
+        code = kernels.lib().conv3x3_wgrad_bf16(x.data_ptr(), dy.data_ptr(), part.data_ptr(),
+                                                dw.data_ptr(), plan.c_ints, stream)
+    else:
+        splits, per = wgrad_f32_split(b, h, w, cin, cout)
+        part = torch.empty((splits, 9 * cin, cout), device=x.device, dtype=torch.float32)
+        code = kernels.lib().conv3x3_wgrad_f32(x.data_ptr(), dy.data_ptr(), part.data_ptr(),
+                                               dw.data_ptr(), b, h, w, cin, cout, splits, per,
+                                               stream)
+    kernels.check(code, "conv3x3_wgrad")
+    conv3x3_wgrad.launches += 1
+    conv3x3_wgrad.shapes[(tuple(x.shape), cout, str(x.dtype))] += 1
+    return dw
 
 
 conv3x3.launches = 0
 conv3x3.shapes = Counter()
+conv3x3_dgrad.launches = 0
+conv3x3_dgrad.shapes = Counter()
+conv3x3_wgrad.launches = 0
+conv3x3_wgrad.shapes = Counter()

@@ -12,6 +12,10 @@ math), the dynamic shared memory, and the persistent grid (as many blocks as fit
 the card at once, a multiple of ``nslices``). The kernel checks the plan against its
 own layout (``plan_ok``) and refuses one that disagrees.
 
+K3's weight gradient (kernels/csrc/conv3x3_wgrad.cu) has a plan of its own
+(``wgrad_plan``): input-channel slices of 16, tiles of whole image rows, a split of the
+pixels over ``kblocks`` blocks per slice.
+
 Plans are pure functions of the call's shape, cached, and computed on the host, so the
 CPU tests hold them to the card's limits.
 """
@@ -155,3 +159,94 @@ def k5_plan(b, h, w, cin, cout, stride, x_is_int8: bool) -> ConvPlan:
     """K5's plan: an int8 halo tile, from int8 codes or quantized from a float x as it
     loads."""
     return conv_plan(b, h, w, cin, cout, stride, 1, not x_is_int8)
+
+
+# ---------------------------------------------------------------------------
+# K3's weight gradient (kernels/csrc/conv3x3_wgrad.cu), bf16 on the tensor cores
+
+WGRAD_CH = 16          # input channels per block (a slice of Cin)
+WGRAD_HALO_PX = 48     # bytes per halo pixel: 16 bf16 channels + 16 of padding
+WGRAD_TILE_PX = 256    # pixels of whole image rows per tile, at most (one row if wider)
+WGRAD_BLOCKS = 2 * NUM_SMS  # the grid: two blocks of 9 warps per SM
+
+
+@dataclass(frozen=True)
+class WgradPlan:
+    """The ints conv3x3_wgrad.cu's ``WgradPlan`` reads, in this order."""
+    B: int
+    H: int
+    W: int
+    Cin: int
+    Cout: int
+    nt: int
+    slices: int
+    tr: int
+    tiles_y: int
+    tiles: int
+    kblocks: int
+    ksteps: int
+    dy_stride: int
+    halo_bytes: int
+    smem: int
+    grid: int
+    c_ints: object = field(default=None, compare=False, repr=False)
+
+    def __post_init__(self):
+        vals = [getattr(self, f) for f in WGRAD_FIELDS]
+        object.__setattr__(self, "c_ints", (ctypes.c_int * len(vals))(*vals))
+
+
+WGRAD_FIELDS = tuple(f.name for f in fields(WgradPlan) if f.name != "c_ints")
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_plan(b: int, h: int, w: int, cin: int, cout: int) -> WgradPlan:
+    """The plan of one weight-gradient call on x (b, h, w, cin) and dy (b, h, w, cout):
+    Cin in slices of 16 channels, Cout (at most 64) padded to nt = 16, 32 or 64, tiles
+    of ``tr`` whole image rows (about 256 pixels), ``kblocks`` blocks per slice walking
+    the tiles, each with the halo of x (its 16 channels) and dy in shared memory."""
+    if cout > 64:
+        raise ValueError(f"conv3x3_wgrad: Cout={cout} > 64 is not supported")
+    nt = next(n for n in (16, 32, 64) if n >= cout)
+    slices = _cdiv(cin, WGRAD_CH)
+    tr = max(1, min(h, WGRAD_TILE_PX // w))
+    tiles_y = _cdiv(h, tr)
+    tiles = b * tiles_y
+    ksteps = _cdiv(tr * w, 16)
+    dy_stride = nt * 2 + 16
+    halo_bytes = _align128((tr + 2) * (w + 2) * WGRAD_HALO_PX)
+    smem = halo_bytes + ksteps * 16 * dy_stride
+    if smem > SMEM_BLOCK:
+        raise ValueError(f"conv3x3_wgrad: no plan fits shared memory at W={w}")
+    kblocks = max(1, min(tiles, WGRAD_BLOCKS // slices))
+    return WgradPlan(B=b, H=h, W=w, Cin=cin, Cout=cout, nt=nt, slices=slices, tr=tr,
+                     tiles_y=tiles_y, tiles=tiles, kblocks=kblocks, ksteps=ksteps,
+                     dy_stride=dy_stride, halo_bytes=halo_bytes, smem=smem,
+                     grid=slices * kblocks)
+
+
+def wgrad_plan_ok(p: WgradPlan) -> bool:
+    """conv3x3_wgrad.cu ``wgrad_plan_ok``."""
+    tile_px = p.tr * p.W
+    return (p.B > 0 and p.H > 0 and p.W > 0 and p.Cin > 0 and 0 < p.Cout <= p.nt
+            and p.nt in (16, 32, 64) and p.slices * WGRAD_CH >= p.Cin
+            > (p.slices - 1) * WGRAD_CH and 1 <= p.tr <= p.H and p.tiles_y * p.tr >= p.H
+            and p.tiles == p.B * p.tiles_y and 1 <= p.kblocks <= p.tiles
+            and p.ksteps * 16 >= tile_px > (p.ksteps - 1) * 16
+            and p.dy_stride == p.nt * 2 + 16
+            and p.halo_bytes == _align128((p.tr + 2) * (p.W + 2) * WGRAD_HALO_PX)
+            and p.smem == p.halo_bytes + p.ksteps * 16 * p.dy_stride <= SMEM_BLOCK
+            and p.grid == p.slices * p.kblocks)
+
+
+WGRAD_F32_SPLIT_BLOCKS = 2 * NUM_SMS
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_f32_split(b: int, h: int, w: int, cin: int, cout: int):
+    """(splits, pixels per split) of the f32 weight gradient's K: enough 64 x 64 tiles of
+    (tap, ci) x Cout times splits for two blocks per SM, each split a multiple of 16."""
+    m = b * h * w
+    tiles = _cdiv(9 * cin, 64) * _cdiv(cout, 64)
+    per = _cdiv(_cdiv(m, max(1, WGRAD_F32_SPLIT_BLOCKS // tiles)), 16) * 16
+    return _cdiv(m, per), per

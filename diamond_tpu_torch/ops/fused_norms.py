@@ -9,6 +9,12 @@ runs the plain PyTorch version beside it, written to the JAX package's formulas:
 single-pass moments E[x^2] - E[x]^2 per group, eps 1e-5, one rounding to x's dtype at
 the end. The FiLM rows and the affine are read as they come, f32 or bf16.
 
+``groupnorm_silu`` is differentiable: where an input needs a gradient its backward is
+a kernel too, ``groupnorm_silu_bwd`` (``kernels/csrc/gn_bwd.cu``), the VJP of the JAX
+package's ``_gn_silu_ref`` (its custom_vjp backward), beside its plain version
+``groupnorm_silu_bwd_plain``. ``adagn_silu`` (K1) is forward-only: no training step of
+the port differentiates through it yet.
+
 Each wrapper counts its kernel launches in ``<wrapper>.launches`` and the call
 signatures it launched with in ``<wrapper>.shapes``.
 """
@@ -21,7 +27,7 @@ from collections import Counter
 import torch
 
 from .. import kernels
-from .norm_plan import PORTABLE_CLUSTER, NormPlan, norm_plan, plan_for
+from .norm_plan import PORTABLE_CLUSTER, NormPlan, bwd_plan, norm_plan, plan_for
 
 GN_EPS = 1e-5
 
@@ -53,6 +59,28 @@ def groupnorm_silu_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tenso
     return y.to(x.dtype)
 
 
+def groupnorm_silu_bwd_plain(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                             bias: torch.Tensor, num_groups: int, silu: bool = True):
+    """The VJP of ``groupnorm_silu_plain`` (the JAX package's ``_gn_silu_ref``) at x for
+    the cotangent dy, written out in f32: (dx in x's dtype, dscale, dbias f32 (C,))."""
+    n, h, w, c = x.shape
+    x32, mean_c, inv_c = _group_moments(x, num_groups)
+    xh = (x32 - mean_c) * inv_c
+    d = dy.float()
+    if silu:
+        o = xh * scale.float() + bias.float()
+        s = torch.sigmoid(o)
+        d = d * (s * (1 + o * (1 - s)))
+    gsc = d * scale.float()
+
+    def group_mean(v):
+        m = v.reshape(n, h * w, num_groups, c // num_groups).mean(dim=(1, 3))
+        return m.repeat_interleave(c // num_groups, dim=1).reshape(n, 1, 1, c)
+
+    dx = inv_c * (gsc - group_mean(gsc) - xh * group_mean(gsc * xh))
+    return dx.to(x.dtype), (d * xh).sum(dim=(0, 1, 2)), d.sum(dim=(0, 1, 2))
+
+
 def adagn_silu_plain(x: torch.Tensor, scale_shift: torch.Tensor, num_groups: int,
                      silu: bool = True) -> torch.Tensor:
     c = x.shape[-1]
@@ -76,6 +104,21 @@ def placed_plan(plan: NormPlan, q8: bool, device: int) -> NormPlan:
     if clusters > 0:
         return plan
     return plan_for(plan.B, plan.HW, plan.C, plan.G, plan.elem_bytes, PORTABLE_CLUSTER)
+
+
+@functools.lru_cache(maxsize=None)
+def placed_bwd_plan(fwd: NormPlan, device: int) -> NormPlan:
+    """K2's backward plan on the forward plan ``fwd`` (``norm_plan.bwd_plan``), or its
+    8-block form where the card cannot place a cluster of more than 8 backward blocks."""
+    plan = bwd_plan(fwd)
+    if plan.n <= PORTABLE_CLUSTER:
+        return plan
+    with torch.cuda.device(device):
+        clusters = kernels.lib().gn_bwd_max_clusters(plan.c_ints)
+    kernels.check(max(0, -clusters), "gn_bwd_max_clusters")
+    if clusters > 0:
+        return plan
+    return bwd_plan(plan_for(fwd.B, fwd.HW, fwd.C, fwd.G, fwd.elem_bytes, PORTABLE_CLUSTER))
 
 
 def launch_plan(x: torch.Tensor, num_groups: int, name: str, q8: bool = False) -> NormPlan:
@@ -127,9 +170,8 @@ def adagn_silu(x: torch.Tensor, scale_shift: torch.Tensor, num_groups: int,
     return y
 
 
-def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                   num_groups: int, silu: bool = True) -> torch.Tensor:
-    """[SiLU](GN(x) * scale + bias); x (B, H, W, C), scale and bias (C,)."""
+def _groupnorm_silu_fwd(x, scale, bias, num_groups, silu):
+    """One K2 launch (or its plain version on a CPU tensor), outside autograd."""
     if x.device.type == "cpu":
         return groupnorm_silu_plain(x, scale, bias, num_groups, silu)
     plan = launch_plan(x, num_groups, "groupnorm_silu")
@@ -146,7 +188,70 @@ def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y
 
 
+class GroupNormSiLU(torch.autograd.Function):
+    """K2 with its gradient: the forward is the K2 launch, the backward the K2 backward
+    kernel (``groupnorm_silu_bwd``); on CPU tensors both are the plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, silu):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.num_groups, ctx.silu = num_groups, silu
+        return _groupnorm_silu_fwd(x, scale, bias, num_groups, silu)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, bias = ctx.saved_tensors
+        dx, dscale, dbias = groupnorm_silu_bwd(x, dy.contiguous(), scale, bias, ctx.num_groups,
+                                               ctx.silu)
+        return dx, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None
+
+
+def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   num_groups: int, silu: bool = True) -> torch.Tensor:
+    """[SiLU](GN(x) * scale + bias); x (B, H, W, C), scale and bias (C,). Differentiable:
+    on a CUDA tensor that needs a gradient through ``GroupNormSiLU``; under no grad, or
+    where no input needs one, one K2 launch and nothing else."""
+    if x.device.type == "cpu":
+        return groupnorm_silu_plain(x, scale, bias, num_groups, silu)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return GroupNormSiLU.apply(x, scale, bias, num_groups, silu)
+    return _groupnorm_silu_fwd(x, scale, bias, num_groups, silu)
+
+
+def groupnorm_silu_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                       bias: torch.Tensor, num_groups: int, silu: bool = True):
+    """(dx, dscale, dbias) of [SiLU](GN(x) * scale + bias) for the cotangent dy (x's
+    shape and dtype): dx in x's dtype, dscale and dbias f32 (C,). One call of the K2
+    backward kernel (kernels/csrc/gn_bwd.cu: the cluster kernel, then the fixed-order
+    sum of its per-block partials)."""
+    if x.device.type == "cpu":
+        return groupnorm_silu_bwd_plain(x, dy, scale, bias, num_groups, silu)
+    fwd = launch_plan(x, num_groups, "groupnorm_silu_bwd")
+    plan = placed_bwd_plan(fwd, x.device.index)
+    c = x.shape[-1]
+    if scale.shape != (c,) or bias.shape != (c,):
+        raise ValueError(f"groupnorm_silu_bwd: scale and bias must be ({c},)")
+    if (dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device
+            or not dy.is_contiguous() or dy.data_ptr() % 16):
+        raise ValueError("groupnorm_silu_bwd: dy must be a contiguous, 16-byte aligned "
+                         "tensor of x's shape, dtype and device")
+    (sc, bi), code = affine_rows(x, "groupnorm_silu_bwd", scale, bias)
+    dx = torch.empty_like(x)
+    part = torch.empty((plan.blocks, 2, c), device=x.device, dtype=torch.float32)
+    dsb = torch.empty((2, c), device=x.device, dtype=torch.float32)
+    kernels.check(kernels.lib().groupnorm_silu_bwd(
+        x.data_ptr(), dy.data_ptr(), sc.data_ptr(), bi.data_ptr(), code, dx.data_ptr(),
+        part.data_ptr(), dsb.data_ptr(), int(silu), plan.c_ints,
+        torch.cuda.current_stream(x.device).cuda_stream), "groupnorm_silu_bwd")
+    groupnorm_silu_bwd.launches += 1
+    groupnorm_silu_bwd.shapes[(tuple(x.shape), str(x.dtype), bool(silu))] += 1
+    return dx, dsb[0], dsb[1]
+
+
 adagn_silu.launches = 0
 adagn_silu.shapes = Counter()
 groupnorm_silu.launches = 0
 groupnorm_silu.shapes = Counter()
+groupnorm_silu_bwd.launches = 0
+groupnorm_silu_bwd.shapes = Counter()

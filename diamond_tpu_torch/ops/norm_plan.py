@@ -24,6 +24,10 @@ and a chunk is a whole number of steps of threads * V elements, so each thread k
 same V channels. Besides x, a block's dynamic shared memory holds C floats (K4's 1/s_c)
 and the n ranks' G partial moments.
 
+K2's backward (kernels/csrc/gn_bwd.cu) runs on its forward's plan with x and dy both
+in shared memory (``bwd_plan``): the same clusters and pixel spans, so that it
+recomputes the forward's moments bit for bit.
+
 Plans are pure functions of the call's shape and dtype, cached, and computed on the
 host, so the CPU tests hold them to the card's limits. The kernel checks the plan
 against its own layout (``plan_ok``, gn_common.cuh ``norm_plan_ok``) and refuses one
@@ -34,7 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass, field, fields
+from dataclasses import dataclass, field, fields, replace
 
 SMEM_BLOCK = 232_448     # bytes of shared memory one block may use (227 KB)
 SMEM_STATIC = 4_096      # the kernel's static shared memory (sums, moments, barriers), at most
@@ -135,8 +139,39 @@ def norm_plan(b: int, hw: int, c: int, g: int, elem_bytes: int) -> NormPlan:
     return plan_for(b, hw, c, g, elem_bytes, n)
 
 
-def plan_ok(p: NormPlan) -> bool:
-    """gn_common.cuh ``norm_plan_ok``: a plan the kernel runs and its layout agrees with."""
+def bwd_extra(p: NormPlan) -> int:
+    """The backward's dynamic shared memory besides x and dy: both rounds' partials of
+    every rank, and each thread's per-channel sums (gn_bwd.cu ``gn_bwd_smem``)."""
+    return 16 * p.n * p.G + 8 * p.threads * p.vec
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(p: NormPlan) -> NormPlan:
+    """The K2 backward's plan (kernels/csrc/gn_bwd.cu) for the forward plan ``p``: the
+    same clusters, blocks, threads and pixel spans, so that it recomputes the forward's
+    moments bit for bit, with x and dy both in shared memory: ``rpx`` pixels of each
+    (all of the span where they fit), in ``chunks`` copies of ``cpx`` pixels of both."""
+    pix = p.C * p.elem_bytes
+    step_px = p.step_px
+    fit = (SMEM_DYNAMIC - bwd_extra(p)) // (2 * pix) // step_px * step_px
+    if fit < step_px:
+        raise ValueError(f"fused GroupNorm backward: C={p.C} does not fit shared memory")
+    rpx = min(p.ppb, fit)
+    cpx = max(1, _cdiv(CHUNK_BYTES, pix * step_px)) * step_px
+    if _cdiv(rpx, cpx) > MAX_CHUNKS:
+        cpx = _cdiv(_cdiv(rpx, MAX_CHUNKS), step_px) * step_px
+    return replace(p, rpx=rpx, cpx=cpx, chunks=_cdiv(rpx, cpx),
+                   smem=2 * rpx * pix + bwd_extra(p), resident=int(rpx == p.ppb))
+
+
+def bwd_plan_ok(p: NormPlan) -> bool:
+    """gn_bwd.cu ``norm_bwd_plan_ok``: the forward's layout, with x and dy on chip."""
+    return (_layout_ok(p)
+            and 2 * p.rpx * p.C * p.elem_bytes + bwd_extra(p) <= p.smem <= SMEM_DYNAMIC)
+
+
+def _layout_ok(p: NormPlan) -> bool:
+    """The layout rules of gn_common.cuh ``norm_plan_ok`` but its shared-memory bound."""
     vec = 16 // p.elem_bytes if p.elem_bytes in (2, 4) else 0
     if (not vec or p.vec != vec or p.B < 1 or p.HW < 1 or p.G < 1 or p.G > MAX_GROUPS
             or p.C % vec or p.C % p.G or (p.C // p.G) % vec):
@@ -148,5 +183,10 @@ def plan_ok(p: NormPlan) -> bool:
     return (1 <= p.n <= MAX_CLUSTER and p.n * p.ppb >= p.HW > (p.n - 1) * p.ppb
             and 1 <= p.rpx <= p.ppb and p.resident == int(p.rpx == p.ppb)
             and p.cpx >= 1 and p.cpx % step_px == 0 and p.chunks == _cdiv(p.rpx, p.cpx)
-            and p.chunks <= MAX_CHUNKS
+            and p.chunks <= MAX_CHUNKS)
+
+
+def plan_ok(p: NormPlan) -> bool:
+    """gn_common.cuh ``norm_plan_ok``: a plan the kernel runs and its layout agrees with."""
+    return (_layout_ok(p)
             and p.rpx * p.C * p.elem_bytes + 4 * p.C + 8 * p.n * p.G <= p.smem <= SMEM_DYNAMIC)

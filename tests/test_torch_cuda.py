@@ -337,3 +337,143 @@ def test_agent_defaults_to_the_card():
     agent = Agent(AgentConfig(), generator=torch.Generator().manual_seed(0))
     for net in agent.nets.values():
         assert all(p.is_cuda for p in net.parameters())
+
+
+# The backward kernels of the actor-critic train step: K2's backward at every norm
+# signature class of the AC trunk (B, H, C) and ragged cases (odd H * W, C = 96 with
+# three groups, B = 1, 64x64x128 on 16-block clusters, f32 64x64x128 and 64x64x256 whose
+# x and dy spill out of shared memory), K3's
+# weight and data gradients at every 3x3 conv signature of the trunk (B, H, W, Cin,
+# Cout) and ragged cases (Cin = 3 and 6, odd H * W, Cout = 24 and 3, B = 1).
+GN_BWD_SHAPES = [(32, 64, 32), (32, 32, 32), (32, 16, 32), (32, 8, 64), (1, 9, 32),
+                 (3, 5, 96), (2, 64, 64), (4, 32, 128), (2, 64, 128)]
+GN_BWD_F32_ONLY = [(1, 64, 256)]
+WGRAD_SHAPES = [(32, 64, 64, 3, 32), (32, 64, 64, 32, 32), (32, 32, 32, 32, 32),
+                (32, 16, 16, 32, 64), (32, 8, 8, 64, 64), (2, 9, 9, 3, 24), (3, 5, 7, 6, 3),
+                (1, 33, 33, 64, 64), (2, 4, 150, 16, 8)]
+
+
+def _bwd_close(a, b, tol):
+    torch.cuda.synchronize()
+    scale = max(1.0, b.float().abs().max().item())
+    err = (a.float() - b.float()).abs().max().item()
+    assert err <= tol * scale, (err, tol, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernels_match_plain_versions(dtype):
+    """K2's backward (dx, dscale, dbias) and K3's weight and data gradients against their
+    plain versions: bf16 within 1/64 of max(1, max |plain|) (one rounding to bf16 on
+    each side); f32 with TF32 off, dx within 1e-4 and dscale, dbias, dW within 1e-3 (sums
+    of up to 131k terms in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diamond_tpu_torch.ops import (conv3x3_dgrad, conv3x3_dgrad_plain, conv3x3_wgrad,
+                                       conv3x3_wgrad_plain, groupnorm_silu_bwd,
+                                       groupnorm_silu_bwd_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    f32 = dt == torch.float32
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for b, h, c in GN_BWD_SHAPES + (GN_BWD_F32_ONLY if f32 else []):
+        x, _, sc, bi = _norm_inputs(b, h, c, dt, g)
+        dy = torch.randn(x.shape, device="cuda", generator=g).to(dt)
+        for silu in (True, False):
+            got = groupnorm_silu_bwd(x, dy, sc, bi, max(1, c // 32), silu)
+            ref = groupnorm_silu_bwd_plain(x, dy, sc, bi, max(1, c // 32), silu)
+            for k, (a, r) in enumerate(zip(got, ref)):
+                _bwd_close(a, r, (1e-4 if k == 0 else 1e-3) if f32 else 1 / 64)
+    for b, h, w, cin, cout in WGRAD_SHAPES:
+        x = torch.randn(b, h, w, cin, device="cuda", generator=g).to(dt)
+        dy = torch.randn(b, h, w, cout, device="cuda", generator=g).to(dt)
+        k = (torch.randn(3, 3, cin, cout, device="cuda", generator=g) / (9 * cin) ** .5).to(dt)
+        _bwd_close(conv3x3_wgrad(x, dy), conv3x3_wgrad_plain(x, dy), 1e-3 if f32 else 1 / 64)
+        _bwd_close(conv3x3_dgrad(dy, k), conv3x3_dgrad_plain(dy, k), 1e-3 if f32 else 1 / 64)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_repeat_bit_for_bit():
+    """K2's backward and K3's weight gradient sum their partials in a fixed order: two
+    calls on the same inputs give the same bits, in bf16 and f32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diamond_tpu_torch.ops import conv3x3_wgrad, groupnorm_silu_bwd
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for dt in (torch.bfloat16, torch.float32):
+        for b, h, c in [(32, 64, 32), (32, 8, 64), (2, 64, 128)]:
+            x, _, sc, bi = _norm_inputs(b, h, c, dt, g)
+            dy = torch.randn(x.shape, device="cuda", generator=g).to(dt)
+            first = groupnorm_silu_bwd(x, dy, sc, bi, c // 32)
+            again = groupnorm_silu_bwd(x, dy, sc, bi, c // 32)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, r) for a, r in zip(first, again))
+        for b, h, w, cin, cout in WGRAD_SHAPES[:5]:
+            x = torch.randn(b, h, w, cin, device="cuda", generator=g).to(dt)
+            dy = torch.randn(b, h, w, cout, device="cuda", generator=g).to(dt)
+            assert torch.equal(conv3x3_wgrad(x, dy), conv3x3_wgrad(x, dy))
+
+
+def _directional_check(fn, inputs, eps=1e-2, rtol=2e-2):
+    """d/dh sum(fn(inputs + h v) * u) at h = 0 by central differences in f32, against
+    autograd's <grad, v>: a gradcheck for f32 kernels (f32 steps cannot reach
+    gradcheck's double-precision tolerances)."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    vs = [torch.randn(t.shape, device="cuda", generator=g) for t in inputs]
+    out = fn(*inputs)
+    u = torch.randn(out.shape, device="cuda", generator=g)
+    grads = torch.autograd.grad((out * u).sum(), inputs)
+    analytic = sum((gr * v).sum() for gr, v in zip(grads, vs)).item()
+    with torch.no_grad():
+        plus = (fn(*(t + eps * v for t, v in zip(inputs, vs))).double() * u).sum().item()
+        minus = (fn(*(t - eps * v for t, v in zip(inputs, vs))).double() * u).sum().item()
+    numeric = (plus - minus) / (2 * eps)
+    assert abs(numeric - analytic) <= rtol * max(1.0, abs(numeric)), (numeric, analytic)
+
+
+@pytest.mark.cuda
+def test_autograd_functions_pass_a_directional_gradcheck():
+    """GroupNormSiLU and Conv3x3Fn on the card in f32 at a tiny shape: autograd's
+    directional derivative (the backward kernels) equals central differences of the
+    forward kernels to 2 % (f32 differences with step 1e-2), and the launch counters of
+    the backward kernels rise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diamond_tpu_torch.ops import (conv3x3, conv3x3_dgrad, conv3x3_wgrad, groupnorm_silu,
+                                       groupnorm_silu_bwd)
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(10)
+    x = (torch.randn(2, 6, 6, 64, device="cuda", generator=g) * 2 + 0.5).requires_grad_()
+    sc = (1 + 0.1 * torch.randn(64, device="cuda", generator=g)).requires_grad_()
+    bi = (0.1 * torch.randn(64, device="cuda", generator=g)).requires_grad_()
+    before = (groupnorm_silu_bwd.launches, conv3x3_dgrad.launches, conv3x3_wgrad.launches)
+    for silu in (True, False):
+        _directional_check(lambda a, s, b: groupnorm_silu(a, s, b, 2, silu), [x, sc, bi])
+    xc = torch.randn(2, 7, 5, 16, device="cuda", generator=g).requires_grad_()
+    k = (torch.randn(3, 3, 16, 8, device="cuda", generator=g) / 12).requires_grad_()
+    bc = torch.randn(8, device="cuda", generator=g).requires_grad_()
+    _directional_check(lambda a, w, b: conv3x3(a, w, b), [xc, k, bc])
+    after = (groupnorm_silu_bwd.launches, conv3x3_dgrad.launches, conv3x3_wgrad.launches)
+    assert all(a > b for a, b in zip(after, before))
+
+
+@pytest.mark.cuda
+def test_card_places_the_16_block_backward_clusters():
+    """K2's backward on 64x64x128 (16 blocks per sample, x and dy resident in bf16) is a
+    plan this card can run, so the wrapper launches it as planned, on the forward's
+    clusters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diamond_tpu_torch import kernels
+    from diamond_tpu_torch.ops.fused_norms import launch_plan, placed_bwd_plan
+    from diamond_tpu_torch.ops.norm_plan import bwd_plan, norm_plan
+
+    x = torch.zeros(32, 64, 64, 128, dtype=torch.bfloat16, device="cuda")
+    p = bwd_plan(norm_plan(32, 64 * 64, 128, 4, 2))
+    assert p.n == 16 and p.resident
+    assert kernels.lib().gn_bwd_max_clusters(p.c_ints) > 0
+    assert placed_bwd_plan(launch_plan(x, 4, "groupnorm_silu_bwd"), 0) is p
