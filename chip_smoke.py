@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of diamond_tpu_torch: the imagination rollout of the full-size Breakout
-agent on one NVIDIA GPU, bf16 and static int8 (the production default), and the
-actor-critic train step in imagination on the int8 world model, through the port's
-hand-written CUDA kernels.
+agent on one NVIDIA GPU, bf16 and static int8 (the production default), the
+actor-critic train step in imagination on the int8 world model, and the denoiser train
+step, through the port's hand-written CUDA kernels.
 
     python3 chip_smoke.py              # from the repo root, on a machine with a CUDA GPU
 
@@ -33,16 +33,27 @@ result line):
      > 0), peak memory; loss and gradient norm finite, the actor-critic's weights
      moved, the world model's unchanged and without gradients; one step profiled and
      one under the sync debug mode;
-  7. each kernel against its plain PyTorch version at every shape and dtype its path
-     sent it (the backward kernels: the AC step's), and in f32 (TF32 off), with device
-     times, bounds and library yardsticks; the backward kernels also repeat bit for bit;
+  6c. the denoiser train step (training.make_denoiser_train_step, B=32 segments of 6
+     frames: two autoregressive windows, bf16 compute, trainer.yaml's denoiser optimizer
+     with warmup 0) on a deep copy of the agent's denoiser: counts set to 0, one warm-up
+     and DEN_STEPS timed steps -> ms per step, training samples/s, launches per step of
+     each kernel (held to the counts the module tree gives: K1 and its backward, K2 and
+     its backward, K3 with its data and weight gradients, stride 2 apart), peak memory;
+     one step profiled (device busy, the backward Functions' CPU time per call), one
+     under the sync debug mode; every parameter gets a finite gradient and moves, the
+     agent's denoiser stays untouched; the host cost of each backward piece per call;
+  7. each kernel against its plain PyTorch version at every shape and dtype its paths
+     sent it (the backward kernels: the AC step's and the denoiser step's), and in f32
+     (TF32 off), with device times, bounds and library yardsticks (the stride-2
+     gradients also the zero interleave's time); the backward kernels repeat bit for bit;
      the share of the bound; for the 3x3 convs also the ratio to cuDNN's bf16 conv and
      the blocks of the launch plan, for the norms the cluster size and blocks of theirs;
      K4's per-sample epilogue at the int8 path's norm shapes;
   8. the trajectories' sanity, and small full-width rollouts in f32 on the card against
      the same rollouts through the plain versions on the CPU, bf16 path and int8 path;
      the actor-critic's gradient (trunk and heads) on the same frames and carries, card
-     against CPU, and a B=2, T=2 f32 AC-step loss and gradient card against CPU.
+     against CPU, and a B=2, T=2 f32 AC-step loss and gradient card against CPU; a B=2,
+     two-window f32 denoiser loss, its gradients and its fed-back frame card against CPU.
 The last line is {"ok": true, "device": {...}}; the line before it lists the kernels.
 """
 
@@ -60,47 +71,58 @@ BATCH, HORIZON = 32, 15
 POOL_SIZE = 1024
 TIMED_ROLLOUTS = 2
 AC_STEPS = 3
+DEN_STEPS = 3
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
-# kernel -> (source, the TPU kernel it replaces, the path that launches it: a rollout
-# path, or the actor-critic train step for the backward kernels)
+# kernel -> (source, the TPU kernel it replaces, the paths that launch it: rollout paths
+# and train steps, the first of them the one its line of the kernels table reports)
 KERNELS = {
     "adagn_silu": ("diamond_tpu_torch/kernels/csrc/fused_norms.cu",
-                   "diamond_tpu/ops/fused_norms.py:97", "bf16"),
+                   "diamond_tpu/ops/fused_norms.py:97", ("bf16", "denoiser_step")),
     "groupnorm_silu": ("diamond_tpu_torch/kernels/csrc/fused_norms.cu",
-                       "diamond_tpu/ops/fused_norms.py:65", "bf16"),
+                       "diamond_tpu/ops/fused_norms.py:65", ("bf16", "denoiser_step")),
     "conv3x3": ("diamond_tpu_torch/kernels/csrc/conv3x3.cu", "diamond_tpu/ops/conv3x3.py:33",
-                "bf16"),
+                ("bf16", "denoiser_step")),
     "adagn_silu_q8": ("diamond_tpu_torch/kernels/csrc/fused_q8.cu",
-                      "diamond_tpu/ops/fused_q8.py:55", "int8"),
+                      "diamond_tpu/ops/fused_q8.py:55", ("int8",)),
     "groupnorm_silu_q8": ("diamond_tpu_torch/kernels/csrc/fused_q8.cu",
-                          "diamond_tpu/ops/fused_q8.py:55", "int8"),
+                          "diamond_tpu/ops/fused_q8.py:55", ("int8",)),
     "conv3x3_int8": ("diamond_tpu_torch/kernels/csrc/conv3x3_q8.cu",
-                     "diamond_tpu/ops/quant.py:161", "int8"),
+                     "diamond_tpu/ops/quant.py:161", ("int8",)),
     # the backward of K2's custom_vjp (the XLA VJP of _gn_silu_ref on the TPU)
     "groupnorm_silu_bwd": ("diamond_tpu_torch/kernels/csrc/gn_bwd.cu",
-                           "diamond_tpu/ops/fused_norms.py:155", "ac_step"),
-    # K3's gradients (XLA's VJP of the 3x3 conv on the TPU)
+                           "diamond_tpu/ops/fused_norms.py:155", ("ac_step", "denoiser_step")),
+    # K3's gradients (XLA's VJP of the 3x3 conv on the TPU), stride 1 and 2
     "conv3x3_dgrad": ("diamond_tpu_torch/kernels/csrc/conv3x3.cu",
-                      "diamond_tpu/ops/conv3x3.py:33", "ac_step"),
+                      "diamond_tpu/ops/conv3x3.py:33", ("ac_step", "denoiser_step")),
     "conv3x3_wgrad": ("diamond_tpu_torch/kernels/csrc/conv3x3_wgrad.cu",
-                      "diamond_tpu/ops/conv3x3.py:33", "ac_step"),
+                      "diamond_tpu/ops/conv3x3.py:33", ("ac_step", "denoiser_step")),
+    # the backward of K1's custom_vjp (the XLA VJP of _adagn_silu_ref on the TPU)
+    "adagn_silu_bwd": ("diamond_tpu_torch/kernels/csrc/gn_bwd.cu",
+                       "diamond_tpu/ops/fused_norms.py:187", ("denoiser_step",)),
 }
 BACKWARD = ("groupnorm_silu_bwd", "conv3x3_dgrad", "conv3x3_wgrad")
+# the backward kernels, whose sums run in a fixed order: two calls give the same bits
+REPEATS = ("groupnorm_silu_bwd", "conv3x3_wgrad", "adagn_silu_bwd")
 # max |kernel - plain| allowed, as a share of max(1, max |plain|): f32 sums in another
 # order (TF32 off on both sides); bf16 outputs are rounded once on both sides and may
 # differ by one bf16 ulp (1/128 relative), so 2 ulps are allowed. The int8 conv is exact
 # (int8 sums, then the same IEEE f32 steps). The quantizing norms are held in codes:
 # at most 1 apart (a multiply-add the kernel fuses moves a value across a rounding
 # boundary), in at most CODE_SHARE of the elements. K2's backward: f32 dx 1e-4, dscale
-# and dbias 1e-3 (sums over up to 131k terms in another order), bf16 all 1/64.
+# and dbias 1e-3 (sums over up to 131k terms in another order), bf16 all 1/64; K1's the
+# same, its FiLM gradient summed per sample over up to 4,096 pixels.
 TOL = {"float32": {"adagn_silu": 1e-4, "groupnorm_silu": 1e-4, "conv3x3": 1e-3,
                    "conv3x3_int8": 0.0, "groupnorm_silu_bwd": (1e-4, 1e-3, 1e-3),
-                   "conv3x3_dgrad": 1e-3, "conv3x3_wgrad": 1e-3},
+                   "adagn_silu_bwd": (1e-4, 1e-3), "conv3x3_dgrad": 1e-3,
+                   "conv3x3_wgrad": 1e-3},
        "bfloat16": {"adagn_silu": 1 / 64, "groupnorm_silu": 1 / 64, "conv3x3": 1 / 64,
                     "conv3x3_int8": 0.0, "groupnorm_silu_bwd": (1 / 64,) * 3,
-                    "conv3x3_dgrad": 1 / 64, "conv3x3_wgrad": 1 / 64}}
+                    "adagn_silu_bwd": (1 / 64,) * 2, "conv3x3_dgrad": 1 / 64,
+                    "conv3x3_wgrad": 1 / 64}}
 CODE_SHARE = 1e-3
+PER_RUN = {"bf16": "rollout", "int8": "rollout", "ac_step": "AC step",
+           "denoiser_step": "denoiser step"}
 # The H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and dense
 # operations/s by type; the norms' element-wise work runs on the CUDA cores in f32.
 HBM_BYTES_S = 3.35e12
@@ -163,8 +185,9 @@ def cudnn_bf16_conv(x, w, b, stride):
 
 def library_call(name, args):
     """The one PyTorch call that computes the kernel's function, where there is one, as a
-    yardstick: cuDNN's conv for K3, its data and weight gradients for K3's, F.group_norm
-    for K2 without SiLU. None otherwise (K2's backward has its own, ``gn_autograd_ms``)."""
+    yardstick: cuDNN's conv for K3, its data and weight gradients for K3's (stride 1 and
+    2), F.group_norm for K2 without SiLU. None otherwise (the norms' backwards have their
+    own, ``gn_autograd_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -175,38 +198,52 @@ def library_call(name, args):
         return lambda: F.group_norm(x.permute(0, 3, 1, 2), g, scale.to(x.dtype),
                                     bias.to(x.dtype), eps=1e-5)
     if name == "conv3x3_dgrad":
-        dy, w = args
-        b, h, wd, _ = dy.shape
-        return lambda: torch.nn.grad.conv2d_input((b, w.shape[2], h, wd), w.permute(3, 2, 0, 1),
-                                                  dy.permute(0, 3, 1, 2), padding=1)
+        dy, w, stride, (h, wd) = args
+        return lambda: torch.nn.grad.conv2d_input((dy.shape[0], w.shape[2], h, wd),
+                                                  w.permute(3, 2, 0, 1), dy.permute(0, 3, 1, 2),
+                                                  stride=stride, padding=1)
     if name == "conv3x3_wgrad":
-        x, dy = args
+        x, dy, stride = args
         return lambda: torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2),
                                                    (dy.shape[-1], x.shape[-1], 3, 3),
-                                                   dy.permute(0, 3, 1, 2), padding=1)
+                                                   dy.permute(0, 3, 1, 2), stride=stride,
+                                                   padding=1)
     return None
 
 
-def gn_autograd_ms(args) -> float:
-    """K2's backward yardstick: autograd of F.group_norm + F.silu (cuDNN-free native
-    kernels) on the same x, affine and dy, channels-last; its device time is that of
-    forward + backward less that of the forward, both graph-captured (the backward runs
-    on the forward's stream, so the forward is captured with it)."""
+def gn_autograd_ms(name, args) -> float:
+    """The norms' backward yardstick: autograd of F.group_norm + the affine (K2: its
+    learned one inside F.group_norm; K1: the FiLM rows, x̂ * (1 + scale_b) + shift_b) +
+    F.silu (cuDNN-free native kernels) on the same x, affine and dy, channels-last; its
+    device time is that of forward + backward less that of the forward, both
+    graph-captured (the backward runs on the forward's stream, so the forward is
+    captured with it)."""
     import torch
     import torch.nn.functional as F
 
-    x, dy, scale, bias, g, silu = args
-    xr = x.permute(0, 3, 1, 2).detach().requires_grad_()
-    sc = scale.to(x.dtype).detach().requires_grad_()
-    bi = bias.to(x.dtype).detach().requires_grad_()
-    dyr = dy.permute(0, 3, 1, 2)
+    xr = args[0].permute(0, 3, 1, 2).detach().requires_grad_()
+    dyr = args[1].permute(0, 3, 1, 2)
+    g, silu = args[-2:]
+    if name == "adagn_silu_bwd":
+        c = args[0].shape[-1]
+        ss = args[2].to(args[0].dtype).detach().requires_grad_()
+        leaves = (xr, ss)
 
-    def fwd():
-        y = F.group_norm(xr, g, sc, bi, eps=1e-5)
-        return F.silu(y) if silu else y
+        def fwd():
+            y = F.group_norm(xr, g, eps=1e-5)
+            y = y * (1 + ss[:, :c, None, None]) + ss[:, c:, None, None]
+            return F.silu(y) if silu else y
+    else:
+        sc = args[2].to(args[0].dtype).detach().requires_grad_()
+        bi = args[3].to(args[0].dtype).detach().requires_grad_()
+        leaves = (xr, sc, bi)
+
+        def fwd():
+            y = F.group_norm(xr, g, sc, bi, eps=1e-5)
+            return F.silu(y) if silu else y
 
     with torch.enable_grad():
-        both = cuda_time_ms(lambda: torch.autograd.grad(fwd(), (xr, sc, bi), dyr))
+        both = cuda_time_ms(lambda: torch.autograd.grad(fwd(), leaves, dyr))
         return both - cuda_time_ms(fwd)
 
 
@@ -226,16 +263,20 @@ def bound(name, args):
         ops = n * 28
         byts = 3 * n * es + sum(a.numel() * a.element_size() for a in args[2:4]) + 2 * c * 4
         kind = "f32_simt"
-    elif name == "conv3x3_wgrad":  # x, dy -> dW in x's dtype
+    elif name == "adagn_silu_bwd":  # x, dy, scale_shift -> dx, d_scale_shift (B, 2C) f32
+        ops = n * 28
+        byts = 3 * n * es + args[2].numel() * args[2].element_size() + b * 2 * c * 4
+        kind = "f32_simt"
+    elif name == "conv3x3_wgrad":  # x, dy (B, Ho, Wo, Cout), stride -> dW in x's dtype
         dy = args[1]
         cout = dy.shape[-1]
-        ops = 2 * (n // c) * 9 * c * cout
+        ops = 2 * (dy.numel() // cout) * 9 * c * cout  # the products stride 2 needs
         byts = n * es + dy.numel() * es + 9 * c * cout * es
         kind = "bf16_tensor"
-    elif name == "conv3x3_dgrad":  # dy, w (3, 3, Cin, Cout) -> dx (B, H, W, Cin)
-        w = args[1]
+    elif name == "conv3x3_dgrad":  # dy, w (3, 3, Cin, Cout), stride, (H, W) -> dx (B, H, W, Cin)
+        w, (h, wd) = args[1], args[3]
         ops = 2 * (n // c) * 9 * w.shape[2] * c
-        byts = n * es + w.numel() * w.element_size() + (n // c) * w.shape[2] * es
+        byts = n * es + w.numel() * w.element_size() + b * h * wd * w.shape[2] * es
         kind = "bf16_tensor"
     elif name in ("adagn_silu", "groupnorm_silu"):  # small: the FiLM rows or the affine
         silu = args[-1]
@@ -286,19 +327,26 @@ def make_inputs(name, sig, dtype, gen):
 
     dev = "cuda"
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
-    if name == "conv3x3_wgrad":
-        shape, cout, _ = sig
-        return (rnd(*shape).to(dtype), rnd(*shape[:3], cout).to(dtype))
-    if name == "conv3x3_dgrad":  # the K3 call's signature: dy's shape and the conv's Cin
-        shape, cin = sig[:2]
+    if name == "conv3x3_wgrad":  # x's shape, Cout, stride
+        shape, cout, stride, _ = sig
+        b, h, w, _ = shape
+        return (rnd(*shape).to(dtype),
+                rnd(b, (h - 1) // stride + 1, (w - 1) // stride + 1, cout).to(dtype), stride)
+    if name == "conv3x3_dgrad":  # dy's shape, the conv's Cin, stride, its input's H and W
+        shape, cin, stride, hw, _ = sig
         w = ((torch.rand((3, 3, cin, shape[-1]), generator=gen, device=dev) * 2 - 1)
              / (9 * cin) ** 0.5).to(dtype)
-        return (rnd(*shape).to(dtype), w)
+        return (rnd(*shape).to(dtype), w, stride, hw)
     if name == "groupnorm_silu_bwd":
         shape, _, silu = sig
         c = shape[-1]
         return ((2 * rnd(*shape) + 0.5).to(dtype), rnd(*shape).to(dtype), 1 + 0.1 * rnd(c),
                 0.1 * rnd(c), max(1, c // 32), silu)
+    if name == "adagn_silu_bwd":  # the FiLM rows in the run's dtype, as the model makes them
+        shape, _, silu, _ = sig
+        c = shape[-1]
+        return ((2 * rnd(*shape) + 0.5).to(dtype), rnd(*shape).to(dtype),
+                (0.5 * rnd(shape[0], 2 * c)).to(dtype), max(1, c // 32), silu)
     if name == "conv3x3":
         shape, cout, stride, has_bias, _ = sig
         x = rnd(*shape).to(dtype)
@@ -355,9 +403,9 @@ def norm_launch(name, args) -> tuple:
     launches it: the blocks per sample's cluster and the grid."""
     from diamond_tpu_torch.ops.fused_norms import launch_plan, placed_bwd_plan
 
-    if name == "groupnorm_silu_bwd":
-        x, g = args[0], args[4]
-        p = placed_bwd_plan(launch_plan(x, g, name), x.device.index)
+    if name in ("groupnorm_silu_bwd", "adagn_silu_bwd"):
+        x, g = args[0], args[-2]
+        p = placed_bwd_plan(launch_plan(x, g, name), x.device.index, name == "adagn_silu_bwd")
         return p.n, p.blocks
     x, g = args[0], args[2] if name.startswith("adagn") else args[3]
     p = launch_plan(x, g, name, name.endswith("_q8"))
@@ -374,7 +422,8 @@ def conv_blocks(name, args) -> int:
     b, h, w, cin = x.shape
     if name == "conv3x3_wgrad":
         return conv_plan.wgrad_plan(b, h, w, cin, args[1].shape[-1]).grid
-    if name == "conv3x3_dgrad":
+    if name == "conv3x3_dgrad":  # K3 on dy, or at stride 2 on dyz (the input's size)
+        h, w = args[3]
         return conv_plan.k3_plan(b, h, w, cin, args[1].shape[2], 1).grid
     if name == "conv3x3_int8":
         return conv_plan.k5_plan(b, h, w, cin, args[1].shape[-1], args[5],
@@ -389,15 +438,17 @@ def compare_one(name, kernel, plain, args, dt_name):
 
     y, ref = kernel(*args), plain(*plain_args(name, args))
     torch.cuda.synchronize()
-    if name in ("groupnorm_silu_bwd", "conv3x3_wgrad"):  # a fixed order: the same bits again
+    if name in REPEATS:  # a fixed order: the same bits again
         again = kernel(*args)
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(*(
             (v,) if isinstance(v, torch.Tensor) else v for v in (y, again)))),
             f"{name} {dt_name}: two calls differ")
-    if name == "groupnorm_silu_bwd":  # dx, dscale, dbias
+    if name in ("groupnorm_silu_bwd", "adagn_silu_bwd"):  # dx, then the affine's gradient
+        parts = ("dx", "dscale", "dbias") if name == "groupnorm_silu_bwd" else (
+            "dx", "d_scale_shift")
         err = 0.0
-        for part, a, r, tol in zip(("dx", "dscale", "dbias"), y, ref, TOL[dt_name][name]):
+        for part, a, r, tol in zip(parts, y, ref, TOL[dt_name][name]):
             scale = max(1.0, r.float().abs().max().item())
             e = (a.float() - r.float()).abs().max().item()
             check(bool(torch.isfinite(a).all()) and e <= tol * scale,
@@ -418,30 +469,37 @@ def compare_one(name, kernel, plain, args, dt_name):
     return e
 
 
+def _zero_totals() -> dict:
+    return dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                ms_where_library=0.0, cudnn_bf16_ms=0.0, per_sample_ms=0.0,
+                per_sample_plain_ms=0.0, has_library=False)
+
+
 def compare_kernels(shapes, launches, runs):
-    """Each kernel against its plain version at the recorded signatures of its path
-    (as the path ran them, and the same shapes in f32), timed, with its bound and
-    library yardstick; times and bounds per rollout (per AC step for the backward
-    kernels: ``runs`` holds the rollouts or steps each path's counts were taken over)
-    weight each signature by its calls.
-    K4's per-sample epilogue runs at the int8 path's AdaGN shapes. Returns the JSON
-    rows and the per-signature details."""
+    """Each kernel against its plain version at the recorded signatures of its paths (as
+    the paths ran them, and the same shapes in f32), timed, with its bound and library
+    yardstick; times and bounds per run of each path (a rollout, or a train step:
+    ``runs`` holds the runs each path's counts were taken over) weight each signature
+    by its calls there. A kernel's entry reports its first path, and every path in
+    ``by_path``. K4's per-sample epilogue runs at the int8 path's AdaGN shapes. Returns
+    the JSON rows and the per-signature details."""
     import torch
     from diamond_tpu_torch import ops
+    from diamond_tpu_torch.ops.conv3x3 import zero_interleave
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows, details = [], []
-    for name, (source, replaces, path) in KERNELS.items():
+    for name, (source, replaces, paths) in KERNELS.items():
         kernel, plain = getattr(ops, name), getattr(ops, name + "_plain")
         err = {"float32": 0.0, "bfloat16": 0.0}
-        tot = dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0, bound_ms=0.0,
-                   library_ms=0.0, ms_where_library=0.0, cudnn_bf16_ms=0.0,
-                   per_sample_ms=0.0, per_sample_plain_ms=0.0)
-        has_library = False
-        num_rollouts = runs[path]
-        for sig, count in sorted(shapes[path][name].items(), key=lambda kv: str(kv[0])):
+        tots = {p: _zero_totals() for p in paths}
+        calls = {}  # signature -> {path: calls per run}
+        for p in paths:
+            for sig, count in shapes[p][name].items():
+                calls.setdefault(sig, {})[p] = count / runs[p]
+        for sig, per_run in sorted(calls.items(), key=lambda kv: str(kv[0])):
             run_dtype = sig[-1] if name.startswith("conv") else sig[1]  # as the path ran it
             for dt_name in ("bfloat16", "float32"):
                 as_run = run_dtype == f"torch.{dt_name}"
@@ -450,32 +508,27 @@ def compare_kernels(shapes, launches, runs):
                 err[dt_name] = max(err[dt_name], e)
                 t_k = cuda_time_ms(lambda: kernel(*args))
                 t_p = cuda_time_ms(lambda: plain(*plain_args(name, args)))
-                row = dict(kernel=name, signature=str(sig), dtype=dt_name,
-                           calls_per_rollout=count / num_rollouts, max_abs_err=e, ms=t_k,
-                           plain_ms=t_p)
-                if as_run:  # the rollout's dtype: weight by its call count
-                    w = count / num_rollouts
+                row = dict(kernel=name, signature=str(sig), dtype=dt_name, calls_per_run=per_run,
+                           max_abs_err=e, ms=t_k, plain_ms=t_p)
+                if as_run:  # the path's dtype: weight by its call count
                     t_b, t_o = bound(name, plain_args(name, args))
                     row.update(bytes_ms=t_b, ops_ms=t_o, bound_ms=max(t_b, t_o))
-                    tot["ms"] += w * t_k
-                    tot["plain_ms"] += w * t_p
-                    tot["bytes_ms"] += w * t_b
-                    tot["ops_ms"] += w * t_o
-                    tot["bound_ms"] += w * max(t_b, t_o)
                     lib = library_call(name, args)
-                    if lib is not None or name == "groupnorm_silu_bwd":
-                        has_library = True
-                        row["library_ms"] = (gn_autograd_ms(args) if lib is None
+                    if lib is not None or name in ("groupnorm_silu_bwd", "adagn_silu_bwd"):
+                        row["library_ms"] = (gn_autograd_ms(name, args) if lib is None
                                              else cuda_time_ms(lib))
-                        tot["library_ms"] += w * row["library_ms"]
-                        tot["ms_where_library"] += w * t_k
                     if name == "conv3x3_int8":
                         x, wq, ws, am, bias, stride = args[:6]
                         xb = (x.float() if x.dtype == torch.int8 else x).to(torch.bfloat16)
                         wb = wq.to(torch.bfloat16)
                         row["cudnn_bf16_ms"] = cuda_time_ms(
                             lambda: cudnn_bf16_conv(xb, wb, bias, stride))
-                        tot["cudnn_bf16_ms"] += w * row["cudnn_bf16_ms"]
+                    if name == "conv3x3_dgrad" and args[2] == 2:  # the zero fill + strided copy
+                        row["interleave_ms"] = cuda_time_ms(
+                            lambda: zero_interleave(args[0], args[3], 2))
+                    if name == "conv3x3_wgrad" and args[2] == 2:
+                        row["interleave_ms"] = cuda_time_ms(
+                            lambda: zero_interleave(args[1], tuple(args[0].shape[1:3]), 2))
                     row["bound_share"] = row["bound_ms"] / t_k
                     if name.startswith("conv"):  # ratio to cuDNN, blocks
                         row["vs_library"] = t_k / row.get("library_ms", row.get("cudnn_bf16_ms"))
@@ -497,27 +550,41 @@ def compare_kernels(shapes, launches, runs):
                         lambda: ops.norm_affine_silu_q8_plain(*pargs))
                     pb, po = bound("norm_affine_silu_q8", pargs)
                     row["per_sample_bound_ms"] = max(pb, po)
-                    if as_run:
-                        tot["per_sample_ms"] += count / num_rollouts * row["per_sample_ms"]
-                        tot["per_sample_plain_ms"] += (count / num_rollouts
-                                                       * row["per_sample_plain_ms"])
+                if as_run:
+                    for p, w in per_run.items():
+                        tot = tots[p]
+                        for k, v in (("ms", t_k), ("plain_ms", t_p), ("bytes_ms", row["bytes_ms"]),
+                                     ("ops_ms", row["ops_ms"]), ("bound_ms", row["bound_ms"]),
+                                     ("cudnn_bf16_ms", row.get("cudnn_bf16_ms", 0.0)),
+                                     ("per_sample_ms", row.get("per_sample_ms", 0.0)),
+                                     ("per_sample_plain_ms", row.get("per_sample_plain_ms", 0.0))):
+                            tot[k] += w * v
+                        if "library_ms" in row:
+                            tot["has_library"] = True
+                            tot["library_ms"] += w * row["library_ms"]
+                            tot["ms_where_library"] += w * t_k
                 details.append(row)
                 log(f"[compare] {name} {sig} {dt_name}: err {e:.3g} kernel {t_k:.4f} ms plain "
                     f"{t_p:.4f} ms" + "".join(f" {k} {row[k]:.4f}" for k in (
                         "bound_ms", "library_ms", "cudnn_bf16_ms", "per_sample_ms",
-                        "vs_library", "bound_share") if k in row)
+                        "interleave_ms", "vs_library", "bound_share") if k in row)
                     + (f" cluster {row['cluster']}" if "cluster" in row else "")
                     + (f" blocks {row['blocks']}" if "blocks" in row else ""))
+        by_path = {p: dict(launches=launches[p][name], ms=t["ms"], plain_ms=t["plain_ms"],
+                           bound_ms=t["bound_ms"],
+                           library_ms=t["library_ms"] if t["has_library"] else None,
+                           shapes=len(shapes[p][name]))
+                   for p, t in tots.items()}
+        path, tot = paths[0], tots[paths[0]]
         entry = dict(name=name, route="cuda", source=source, replaces=replaces,
                      launches=launches[path][name], max_abs_err=err["bfloat16"],
                      ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
                      bound_by="bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
-                     library_ms=tot["library_ms"] if has_library else None,
+                     library_ms=tot["library_ms"] if tot["has_library"] else None,
                      max_abs_err_f32=err["float32"], path=path,
                      launches_by_path={p: launches[p][name] for p in launches},
-                     per="AC step" if path == "ac_step" else "rollout",
-                     shapes=len(shapes[path][name]))
-        if has_library and name == "groupnorm_silu":
+                     per=PER_RUN[path], shapes=len(shapes[path][name]), by_path=by_path)
+        if tot["has_library"] and name == "groupnorm_silu":
             entry["library_covers"] = "silu=False calls only"
             entry["ms_where_library"] = tot["ms_where_library"]
         if name == "conv3x3_int8":
@@ -603,10 +670,13 @@ def reference_check(agent, st, pool, wm_cfg, int8_sites=None):
 
 
 def profile_run(fn, label, what) -> dict:
-    """One ``fn()`` (a rollout, or an AC step) under torch.profiler: device busy time (the
-    sum of its kernels' times; one stream, so they do not overlap) against the wall time,
-    the kernel launch calls, and the kernels by time. The profiler slows the host, so the
-    idle share it shows is an upper bound."""
+    """One ``fn()`` (a rollout, or a train step) under torch.profiler: device busy time
+    (the sum of its kernels' times; one stream, so they do not overlap) against the wall
+    time, the kernel launch calls, and the kernels by time. A CPU-side annotation that
+    covers device work (the optimizer's ``Optimizer.step#...``) also shows as a device
+    event of its own name, spanning kernels already counted: such spans are reported,
+    not summed. The profiler slows the host, so the idle share it shows is an upper
+    bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -617,10 +687,17 @@ def profile_run(fn, label, what) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+    cpu_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    spans = {e.key: e.self_device_time_total / 1e3 for e in device if e.key in cpu_keys}
+    kernels = sorted((e for e in device if e.key not in cpu_keys),
                      key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    # the port's autograd Functions' backward nodes: CPU µs per call, with what they run
+    functions = {e.key: dict(calls=e.count, cpu_us=e.cpu_time_total / e.count)
+                 for e in events if e.count and "Backward" in e.key
+                 and any(f in e.key for f in ("Conv3x3Fn", "GroupNormSiLU"))}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / f"chip_smoke_profile_{label}.txt").write_text(
         events.table(sort_by="self_device_time_total", row_limit=40))
@@ -629,7 +706,12 @@ def profile_run(fn, label, what) -> dict:
         f"(cudaLaunchKernel + cudaLaunchKernelExC)")
     for e in kernels[:8]:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms {e.count:6d}x {e.key[:90]}")
-    return dict(busy_ms=busy_ms, wall_ms=wall_ms, launches=launches,
+    for k, v in spans.items():
+        log(f"[profile]   not summed: {k}, a span of {v:.2f} ms over kernels counted above")
+    for k, v in functions.items():
+        log(f"[profile]   {k}: {v['calls']} calls, {v['cpu_us']:.1f} µs of CPU per call")
+    return dict(busy_ms=busy_ms, wall_ms=wall_ms, launches=launches, functions=functions,
+                annotation_spans_ms=spans,
                 top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in kernels[:12]])
 
 
@@ -655,8 +737,8 @@ def drive(engine, st, pool, gen, label, smi):
         f"({secs / TIMED_ROLLOUTS * 1e3:.1f} ms per B={BATCH} T={HORIZON} rollout, pool "
         f"features precomputed) on {smi}")
     log(f"[launches] {label}, over {1 + TIMED_ROLLOUTS} rollouts: {launches}")
-    for name, (_, _, path) in KERNELS.items():
-        if path == label:
+    for name, (_, _, paths) in KERNELS.items():
+        if label in paths:
             check(launches[name] > 0, f"{name} was not launched on the {label} path")
     return traj, st, pool, shapes, dict(fps=fps, rollout_ms=secs / TIMED_ROLLOUTS * 1e3,
                                         launches=launches)
@@ -925,6 +1007,238 @@ def ac_step_reference(agent, st, pool, wm_cfg):
                 frame_share=(d > 0).float().mean().item())
 
 
+def expected_denoiser_launches(inner, windows: int) -> dict:
+    """The kernel launches one denoiser step makes, from the module tree: per window one
+    forward (K1 per fused AdaGN, K2 per GroupNorm, K3 per 3x3 conv) and one backward (the
+    same count of K1's and K2's backwards and of weight gradients, and a data gradient
+    for every conv but ``conv_in``, whose input needs none)."""
+    from diamond_tpu_torch.models.blocks import AdaGroupNorm, Conv3x3, GroupNorm
+
+    mods = list(inner.modules())
+    k1 = sum(isinstance(m, AdaGroupNorm) for m in mods)
+    k2 = sum(isinstance(m, GroupNorm) for m in mods)
+    k3 = sum(isinstance(m, Conv3x3) for m in mods)
+    s2 = sum(isinstance(m, Conv3x3) and m.strides == 2 for m in mods)
+    w = windows
+    return {"adagn_silu": w * k1, "adagn_silu_bwd": w * k1, "groupnorm_silu": w * k2,
+            "groupnorm_silu_bwd": w * k2, "conv3x3": w * k3, "conv3x3_dgrad": w * (k3 - 1),
+            "conv3x3_wgrad": w * k3, "conv3x3_dgrad at stride 2": w * s2,
+            "conv3x3_wgrad at stride 2": w * s2}
+
+
+def denoiser_batch(cfg, b: int, gen, device):
+    """Synthetic uint8 segments (b, n + 1 + num_autoregressive_steps frames) and random
+    actions from ``gen``, every frame real (no padding), as a DeviceBatch on ``device``."""
+    import torch
+    from diamond_tpu_torch.config import TrainerConfig
+    from diamond_tpu_torch.data.segment import DeviceBatch
+
+    inner = cfg.denoiser.inner_model
+    t = inner.num_steps_conditioning + 1 + TrainerConfig().denoiser.training.num_autoregressive_steps
+    size = cfg.rew_end_model.img_size
+    obs = torch.randint(0, 256, (b, t, size, size, inner.img_channels), generator=gen,
+                        dtype=torch.uint8).to(device)
+    act = torch.randint(0, cfg.num_actions, (b, t), generator=gen).to(device)
+    return DeviceBatch(obs=obs, act=act, mask_padding=torch.ones((b, t), dtype=torch.bool,
+                                                                 device=device))
+
+
+def host_costs() -> dict:
+    """Host µs per call of each piece of the backward Functions, on small bf16 inputs
+    (B = 2, 16x16x64, the device's work a few µs): where the CPU time of a backward node
+    goes. A figure, not a check."""
+    import torch
+    from diamond_tpu_torch import ops
+    from diamond_tpu_torch.ops.conv3x3 import flip_kernel, zero_interleave
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    rnd = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)  # noqa: E731
+    x, dy, w = rnd(2, 16, 16, 64), rnd(2, 16, 16, 64), rnd(3, 3, 64, 64)
+    dy2, ss = rnd(2, 8, 8, 64), rnd(2, 128)
+    sc, bi = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    pieces = {
+        "flip_kernel": lambda: flip_kernel(w),
+        "zero_interleave (stride 2)": lambda: zero_interleave(dy2, (16, 16), 2),
+        "conv3x3_dgrad": lambda: ops.conv3x3_dgrad(dy, w),
+        "conv3x3_dgrad at stride 2": lambda: ops.conv3x3_dgrad(dy2, w, 2, (16, 16)),
+        "conv3x3_wgrad": lambda: ops.conv3x3_wgrad(x, dy),
+        "bias gradient (f32 sum of dy)": lambda: dy.sum(dim=(0, 1, 2), dtype=torch.float32),
+        "groupnorm_silu_bwd": lambda: ops.groupnorm_silu_bwd(x, dy, sc, bi, 2),
+        "adagn_silu_bwd": lambda: ops.adagn_silu_bwd(x, dy, ss, 2),
+    }
+    out = {}
+    for k, fn in pieces.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        out[k] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+    log("[host] CPU µs per call: " + ", ".join(f"{k} {v:.1f}" for k, v in out.items()))
+    return out
+
+
+def denoiser_step_phase(agent, smi):
+    """The denoiser train step as the trainer calls it (training.make_denoiser_train_step
+    with trainer.yaml's denoiser section: lr 1e-4, decay 1e-2, eps 1e-8, clip 1.0, the
+    sigma distribution; warmup 0 instead of 100, so that the first step moves the
+    weights), on a deep copy of the agent's denoiser (full width, bf16 compute over f32
+    parameters; the copy carries the int8 collection, which training ignores): B = 32
+    synthetic segments of 6 frames, two autoregressive windows. Counts set to 0, one
+    warm-up step and DEN_STEPS timed ones, counts read and held to the module tree's;
+    then one step profiled, one under the sync debug mode, and one loss's gradients
+    checked leaf by leaf. The agent's denoiser is checked untouched. Returns (signatures,
+    result)."""
+    import copy
+    from dataclasses import replace
+
+    import torch
+    from diamond_tpu_torch import ops
+    from diamond_tpu_torch.config import TrainerConfig
+    from diamond_tpu_torch.data.episode import obs_to_float
+    from diamond_tpu_torch.training import OptimizerSpec, TrainState, make_denoiser_train_step
+
+    tcfg = TrainerConfig().denoiser
+    spec = replace(OptimizerSpec.from_cfg(tcfg.optimizer, tcfg.training), lr_warmup_steps=0)
+    tx = spec.build()
+    src = agent.denoiser.inner_model
+    src_before = {k: v.detach().clone() for k, v in src.state_dict().items()}
+    den = copy.deepcopy(agent.denoiser)
+    net = den.inner_model
+    before = {n: p.detach().clone() for n, p in net.named_parameters()}
+    state = TrainState.create(net, tx)
+    step = make_denoiser_train_step(den, tx, tcfg.sigma_distribution)
+    batch = denoiser_batch(agent.cfg, BATCH, torch.Generator().manual_seed(SEED + 7), "cuda")
+    windows = batch.obs.shape[1] - agent.cfg.denoiser.inner_model.num_steps_conditioning
+    dgen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+
+    count_reset()
+    state, m = step(state, batch, generator=dgen)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(v)) for v in m.values()), f"denoiser step: non-finite {m}")
+    moved = sum(not torch.equal(p.detach(), before[n]) for n, p in net.named_parameters())
+    check(moved == len(before), f"denoiser step: {len(before) - moved} parameter tensors "
+          "did not change in the first step (warmup 0)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(DEN_STEPS):
+        state, m = step(state, batch, generator=dgen)
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / DEN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    steps = 1 + DEN_STEPS
+    launches = {name: getattr(ops, name).launches for name in KERNELS}
+    shapes = {name: dict(getattr(ops, name).shapes) for name in KERNELS}
+    per_step = {name: launches[name] / steps for name in launches}
+    for name in ("conv3x3_dgrad", "conv3x3_wgrad"):
+        per_step[f"{name} at stride 2"] = sum(
+            c for sig, c in shapes[name].items() if sig[2] == 2) / steps
+    expected = expected_denoiser_launches(net, windows)
+    for k, v in expected.items():
+        check(per_step[k] == v, f"denoiser step: {per_step[k]} {k} launches per step, the "
+              f"module tree says {v}")
+    metrics = {k: v.item() for k, v in m.items()}
+    check(all(map(math.isfinite, metrics.values())), f"denoiser step: non-finite {metrics}")
+    fps = BATCH * windows / secs
+    log(f"[denoiser_step] B={BATCH} T={batch.obs.shape[1]} ({windows} windows), bf16 compute, "
+        f"f32 parameters, warmup 0 (the first step moves every weight): {secs * 1e3:.1f} ms "
+        f"per step, {fps:.1f} denoiser training samples/s (B x windows / step) over "
+        f"{DEN_STEPS} steps after one warm-up, peak memory {peak / 2**30:.2f} GiB, on {smi}")
+    log("[denoiser_step] metrics of the last step: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in metrics.items()))
+    log(f"[launches] denoiser_step, per step (as the module tree says): "
+        + ", ".join(f"{k} {v:g}" for k, v in per_step.items() if v))
+
+    profile = profile_run(lambda: step(state, batch, generator=dgen), "denoiser_step",
+                          "denoiser step")
+    syncs = sync_points(lambda: step(state, batch, generator=dgen))
+    log(f"[sync] denoiser step: {sum(syncs.values())} host-device synchronisations {syncs}")
+    # every parameter leaf receives a finite gradient (checked outside the counted run)
+    state.opt_state.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+        loss, _ = den.loss(obs_to_float(batch.obs), batch.act, batch.mask_padding,
+                           tcfg.sigma_distribution, generator=dgen)
+        loss.backward()
+    missing = [n for n, p in net.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    check(not missing, f"denoiser step: no finite gradient for {missing}")
+    state.opt_state.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        moved = max((p - before[n]).abs().max().item() for n, p in net.named_parameters())
+    untouched = all(torch.equal(v, src_before[k]) for k, v in src.state_dict().items())
+    check(untouched and all(p.grad is None for p in src.parameters()),
+          "denoiser step: the agent's denoiser changed or has gradients")
+    log(f"[denoiser_step] every one of {len(before)} parameter tensors got a finite gradient; "
+        f"largest weight change {moved:.3g}; the agent's denoiser untouched")
+    costs = host_costs()
+    return shapes, dict(step_ms=secs * 1e3, samples_per_s=fps, windows=windows,
+                        peak_memory_bytes=peak, launches=launches, launches_per_step=per_step,
+                        metrics=metrics, profile=profile, sync_points=syncs,
+                        max_weight_change=moved, steps=steps, host_costs_us=costs)
+
+
+def denoiser_step_reference(agent):
+    """A B=2 full-width denoiser loss and gradient (two windows, one frame padded) in f32
+    on the card (kernels, TF32 off) and on the CPU (plain versions), same weights and
+    draws. The loss within 1e-4 relative; each parameter's gradient within 1e-2 of its
+    CPU leaf's largest |value| (a frame fed back into the second window may differ by a
+    grid level, which moves that window's gradient a little); the fed-back frame of the
+    first window at most one grid level apart in at most 0.1 % of the values."""
+    import torch
+    from diamond_tpu_torch.config import TrainerConfig
+    from diamond_tpu_torch.data.episode import obs_to_float
+    from diamond_tpu_torch.models import Denoiser
+    from diamond_tpu_torch.models.denoiser import draw_loss_noise
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sigma_cfg = TrainerConfig().denoiser.sigma_distribution
+    n = agent.cfg.denoiser.inner_model.num_steps_conditioning
+    b = 2
+    batch = denoiser_batch(agent.cfg, b, torch.Generator().manual_seed(SEED + 9), "cpu")
+    batch.mask_padding[1, -1] = False
+    _, t, h, w, c = batch.obs.shape
+    draws = draw_loss_noise(t - n, b, (h, w, c), torch.Generator().manual_seed(SEED + 10), "cpu")
+    outs = []
+    for dev in ("cuda", "cpu"):
+        d = Denoiser(agent.cfg.denoiser, torch.float32)
+        d.inner_model.load_state_dict(agent.denoiser.inner_model.state_dict())
+        d.inner_model.to(dev)
+        obs = obs_to_float(batch.obs.to(dev))
+        dr = type(draws)(*(v.to(dev) for v in draws))
+        with torch.enable_grad():
+            loss, _ = d.loss(obs, batch.act.to(dev), batch.mask_padding.to(dev), sigma_cfg, dr)
+            loss.backward()
+        sigma = d.sample_sigma_training(dr.sigma[0], sigma_cfg)
+        noisy = d.apply_noise(obs[:, n], sigma, dr.offset[0], dr.noise[0])
+        cs = d.compute_conditioners(sigma)
+        cond = obs[:, :n].movedim(1, 3).reshape(b, h, w, n * c)
+        fed = d.wrap_model_output(noisy, d.compute_model_output(
+            noisy, cond, batch.act[:, :n].to(dev), cs), cs)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        outs.append((loss.item(), {k: q.grad.cpu() for k, q in d.inner_model.named_parameters()},
+                     torch.round((fed.cpu().double() + 1) * 127.5)))
+    (lg, gg, fg), (lc, gc, fc) = outs
+    check(abs(lg - lc) <= 1e-4 * abs(lc), f"denoiser step reference: loss {lg} vs {lc}")
+    shares = {k: (gg[k] - gc[k]).abs().max().item() / max(gc[k].abs().max().item(), 1e-30)
+              for k in gc}
+    worst = max(shares, key=shares.get)
+    check(shares[worst] <= 1e-2, f"denoiser step reference: {worst}'s gradient differs by "
+          f"{shares[worst]:.3g} of its largest |value|")
+    dl = (fg - fc).abs()
+    share = (dl > 0).float().mean().item()
+    check(dl.max().item() <= 1 and share <= 1e-3,
+          f"denoiser step reference: fed-back frames differ by {dl.max().item()} in {share}")
+    log(f"[reference] denoiser step B={b} T={t} f32 card vs CPU plain: loss {lg:.7g} vs "
+        f"{lc:.7g}; every gradient within {shares[worst]:.3g} of its leaf's largest |value| "
+        f"({worst}; limit 1e-2); fed-back frame off by up to {int(dl.max().item())} "
+        f"level(s) in {share:.4%} of values")
+    return dict(loss_card=lg, loss_cpu=lc, max_grad_share=shares[worst], worst_leaf=worst,
+                frame_max_levels=int(dl.max().item()), frame_share=share)
+
+
 def num_sites(coll: dict) -> int:
     return sum(num_sites(v) if isinstance(v, dict) else k == "act_scale" for k, v in coll.items())
 
@@ -995,7 +1309,8 @@ def main() -> int:
     ptr_before = int(pool.ptr)
     shapes = {}
     traj, st, pool, shapes["bf16"], results["bf16"] = drive(engine, st, pool, rgen, "bf16", smi)
-    check(all(results["bf16"]["launches"][n] == 0 for n, k in KERNELS.items() if k[2] == "int8"),
+    check(all(results["bf16"]["launches"][n] == 0 for n, k in KERNELS.items()
+              if k[2] == ("int8",)),
           "an int8 kernel ran on the uncalibrated (bf16) path")
     sanity(traj, st, pool, ptr_before, cfg.num_actions)
     results["bf16"]["other_branch_fps"] = other_branch(engine, st, pool, rgen, cfg.num_actions,
@@ -1036,10 +1351,13 @@ def main() -> int:
     # the actor-critic train step on the int8-calibrated world model
     st, pool, shapes["ac_step"], results["ac_step"] = ac_step_phase(engine, agent, st, pool,
                                                                     rgen, smi)
+    # the denoiser train step, on its own copy of the denoiser
+    shapes["denoiser_step"], results["denoiser_step"] = denoiser_step_phase(agent, smi)
 
-    launches = {p: results[p]["launches"] for p in ("bf16", "int8", "ac_step")}
+    launches = {p: results[p]["launches"] for p in ("bf16", "int8", "ac_step", "denoiser_step")}
     runs = {"bf16": 1 + TIMED_ROLLOUTS, "int8": 1 + TIMED_ROLLOUTS,
-            "ac_step": results["ac_step"]["steps"]}
+            "ac_step": results["ac_step"]["steps"],
+            "denoiser_step": results["denoiser_step"]["steps"]}
     rows, details = compare_kernels(shapes, launches, runs)
     for r in rows:
         log(f"[kernel] {r['name']}: {r['launches']} launches on the {r['path']} path, "
@@ -1049,11 +1367,19 @@ def main() -> int:
             + (f"; on the {r['library_covers']}: kernel {r['ms_where_library']:.2f} ms, library "
                f"{r['library_ms']:.2f} ms" if "library_covers" in r else "")
             + ")")
+        for p, v in r["by_path"].items():
+            if p != r["path"]:
+                log(f"[kernel]   {r['name']} on the {p} path: {v['launches']} launches, "
+                    f"{v['shapes']} shapes, {v['ms']:.2f} ms per {PER_RUN[p]} (plain "
+                    f"{v['plain_ms']:.2f} ms, bound {v['bound_ms']:.2f} ms"
+                    + (f", library {v['library_ms']:.2f} ms" if v["library_ms"] is not None
+                       else "") + ")")
     results["reference_bf16"] = reference_check(agent, st, pool, wm_cfg)
     results["reference_int8"] = reference_check(agent, st, pool, wm_cfg, rt.int8_sites)
     with torch.enable_grad():
         results["reference_ac_gradient"] = ac_gradient_check(agent)
         results["reference_ac_step"] = ac_step_reference(agent, st, pool, wm_cfg)
+    results["reference_denoiser_step"] = denoiser_step_reference(agent)
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(

@@ -146,10 +146,23 @@ class ActorCriticTrainerConfig:
 
 
 @dataclass
+class SigmaDistributionConfig:
+    """trainer.yaml ``denoiser.sigma_distribution``: the training noise levels,
+    sigma = clip(exp(N(loc, scale)), sigma_min, sigma_max) (models/denoiser.py)."""
+
+    loc: float = -0.4
+    scale: float = 1.2
+    sigma_min: float = 2e-3
+    sigma_max: float = 20.0
+
+
+@dataclass
 class DenoiserTrainerConfig:
     training: TrainingConfig = field(default_factory=lambda: TrainingConfig(
         max_grad_norm=1.0, num_autoregressive_steps=1))
     optimizer: OptimizerConfig = field(default_factory=lambda: OptimizerConfig(weight_decay=1e-2))
+    sigma_distribution: SigmaDistributionConfig = field(
+        default_factory=SigmaDistributionConfig)
 
 
 @dataclass
@@ -161,7 +174,8 @@ class RewEndTrainerConfig:
 @dataclass
 class TrainerConfig:
     """The trainer.yaml sections of the three train steps (``denoiser``,
-    ``rew_end_model``, ``actor_critic``: training and optimizer values, and the AC loss)."""
+    ``rew_end_model``, ``actor_critic``: training and optimizer values, the denoiser's
+    sigma distribution and the AC loss)."""
 
     denoiser: DenoiserTrainerConfig = field(default_factory=DenoiserTrainerConfig)
     rew_end_model: RewEndTrainerConfig = field(default_factory=RewEndTrainerConfig)

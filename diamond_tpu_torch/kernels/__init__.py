@@ -47,15 +47,17 @@ _SIGNATURES = {
     "conv3x3_q8_fwd": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P),
     # x, dy, scale, bias, aff_dtype, dx, part, dsb, silu, plan (norm_plan.bwd_plan), stream
     "groupnorm_silu_bwd": (_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P),
+    # x, dy, scale_shift, aff_dtype, dx, dss, silu, plan (norm_plan.bwd_plan), stream
+    "adagn_silu_bwd": (_P, _P, _P, _I, _P, _P, _I, _P, _P),
     # x, dy, part, dw, plan (conv_plan.wgrad_plan), stream
     "conv3x3_wgrad_bf16": (_P, _P, _P, _P, _P, _P),
     # x, dy, part, dw, B, H, W, Cin, Cout, splits, pixels per split, stream
     "conv3x3_wgrad_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _P),
     # plan: the clusters of the norm kernels the card can run at once (K1/K2, K4 static,
-    # K2's backward)
+    # the backward: K2's, or K1's where the int is 1)
     "gn_max_clusters": (_P,),
     "gn_q8_max_clusters": (_P,),
-    "gn_bwd_max_clusters": (_P,),
+    "gn_bwd_max_clusters": (_P, _I),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,13 +1,15 @@
-// The backward of the fused GroupNorm(+SiLU) with a learned affine, for Hopper (sm_90a):
-// K2's gradient.
+// The backward of the fused GroupNorm(+SiLU) kernels, for Hopper (sm_90a): K2's gradient
+// (a learned affine) and K1's (AdaGN: a FiLM row per sample), one template.
 //
-// Replaces the backward of diamond_tpu/ops/fused_norms.py::groupnorm_silu, a
-// jax.custom_vjp whose backward is the XLA VJP of _gn_silu_ref (the TPU has no backward
-// Pallas kernel). With x̂ = (x - mean_g) * inv_g (the forward's moments), o = x̂ * scale +
-// bias and dO = dy * SiLU'(o) (dy without the SiLU), per group g of N = HW * C/G
-// elements of a sample:
-//   dx     = inv_g * (dO*scale - mean_g(dO*scale) - x̂ * mean_g(dO*scale * x̂)),
-//   dscale = sum over B, H, W of dO * x̂,   dbias = sum over B, H, W of dO.
+// Replaces the backwards of diamond_tpu/ops/fused_norms.py::groupnorm_silu and
+// ::adagn_silu, jax.custom_vjps whose backwards are the XLA VJPs of _gn_silu_ref and
+// _adagn_silu_ref (the TPU has no backward Pallas kernel). With x̂ = (x - mean_g) * inv_g
+// (the forward's moments), the multiplier m = scale (K2) or 1 + scale_b (K1), the shift
+// a = bias or shift_b, o = x̂ * m + a and dO = dy * SiLU'(o) (dy without the SiLU), per
+// group g of N = HW * C/G elements of a sample:
+//   dx     = inv_g * (dO*m - mean_g(dO*m) - x̂ * mean_g(dO*m * x̂)),
+//   K2: dscale = sum over B, H, W of dO * x̂,   dbias = sum over B, H, W of dO;
+//   K1: dscale_b = sum over H, W of dO * x̂,    dshift_b = sum over H, W of dO (per sample).
 //
 // What bounds it: bytes. x and dy are read once and dx written once (25.2 MB at
 // B = 32, 64x64x32 bf16, 7.5 µs at 3.35 TB/s); each element takes ~30 f32 operations
@@ -30,8 +32,14 @@
 //     per-channel sums are reduced over the block's threads in a fixed order and
 //     written as the block's (2, C) f32 partial;
 //   * dx from shared memory, 16-byte stores;
-//   * a second small kernel sums the B * n block partials of dscale and dbias in
-//     block order: the same bits every run, no atomics.
+//   * K2: a second small kernel sums the B * n block partials of dscale and dbias in
+//     block order: the same bits every run, no atomics;
+//   * K1: the FiLM gradient is per sample and one cluster holds one sample, so each
+//     block leaves its (2, C) sums in its own shared memory, and after a cluster barrier
+//     rank r sums channels r, r + n, ... of every rank's sums in rank order through
+//     distributed shared memory and writes them once into the (B, 2C) output; a last
+//     cluster barrier keeps each block's shared memory alive until the others have read
+//     it. One launch, no scratch.
 // Element arithmetic pinned by intrinsics as in the forward (o is gn_element's, the
 // sigmoid 1 / (1 + e^-o) with __expf and __fdividef).
 
@@ -43,11 +51,12 @@ struct GnBwdArgs {
   const void* x;
   const void* dy;     // x's dtype
   void* dx;           // x's dtype
-  const void* scale;  // (C,), f32 or bf16 (aff_bf16)
-  const void* bias;
-  int aff_bf16;
+  const void* scale;  // K2: (C,); K1: the FiLM rows' scale half, row b at b * 2C
+  const void* bias;   // K2: (C,); K1: their shift half (scale + C), same stride
+  int aff_bf16;       // f32 or bf16 rows
   int silu;
-  float* part;        // (B * n, 2, C) f32: each block's sums of dO * x̂, then of dO
+  float* part;        // K2: (B * n, 2, C) f32, each block's sums of dO * x̂, then of dO;
+                      // K1: (B, 2C) f32, the FiLM gradient (d scale_b, then d shift_b)
 };
 
 // Dynamic shared memory of the backward: x's and dy's spans, both rounds' partials of
@@ -109,7 +118,7 @@ __device__ __forceinline__ void push_partials(const float* s_a, const float* s_b
   }
 }
 
-template <typename T>
+template <typename T, bool kFilm>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 gn_bwd_cluster_kernel(const GnBwdArgs a, const NormPlan p) {
   constexpr int V = Vec<T>::N;
@@ -161,10 +170,11 @@ gn_bwd_cluster_kernel(const GnBwdArgs a, const NormPlan p) {
   }
 
   uint32_t sraw[V], hraw[V];
+  const int64_t ar = (kFilm ? (int64_t)b * 2 * C : 0) + c0;
 #pragma unroll
   for (int j = 0; j < V; ++j) {
-    sraw[j] = aff_raw(a.scale, c0 + j, a.aff_bf16);
-    hraw[j] = aff_raw(a.bias, c0 + j, a.aff_bf16);
+    sraw[j] = aff_raw(a.scale, ar + j, a.aff_bf16);
+    hraw[j] = aff_raw(a.bias, ar + j, a.aff_bf16);
   }
   __syncthreads();  // the barriers are initialised before anyone waits on them
   if (p.n > 1) cluster_arrive_relaxed();  // ... or stores to them from another block
@@ -199,10 +209,11 @@ gn_bwd_cluster_kernel(const GnBwdArgs a, const NormPlan p) {
   if (p.n > 1) cluster_wait();  // every block's barriers are ready for its partials
   push_partials(s_a, s_b, s_p1, bar1, rank, p.n, C, G, V, nt, t);
 
-  float sc[V], bi[V];
+  float sc[V], bi[V];  // m and a: the forward's (gn_common.cuh, one_plus for K1)
 #pragma unroll
   for (int j = 0; j < V; ++j) {
-    sc[j] = aff_float(sraw[j], a.aff_bf16);
+    const float sv = aff_float(sraw[j], a.aff_bf16);
+    sc[j] = kFilm ? __fadd_rn(1.f, sv) : sv;
     bi[j] = aff_float(hraw[j], a.aff_bf16);
   }
   if (p.n == 1) __syncthreads();
@@ -262,15 +273,34 @@ gn_bwd_cluster_kernel(const GnBwdArgs a, const NormPlan p) {
   __syncthreads();
   push_partials(s_a, s_b, s_p2, bar2, rank, p.n, C, G, V, nt, t);
 
-  // this block's per-channel sums: threads k * C/V + c/V hold channel c, summed in k order
+  // this block's per-channel sums: threads k * C/V + c/V hold channel c, summed in k
+  // order. K2 writes them as the block's partial; K1 leaves them in place of thread 0's
+  // term (s_chan[which * T * V + cc], which no other channel's sum reads) for the cluster
+  // to sum, or writes them where the cluster is one block.
   {
     const int cv = C / V, steps_px = nt / cv;
-    float* out = a.part + ((int64_t)b * p.n + rank) * 2 * C;
+    float* out = kFilm ? a.part + (int64_t)b * 2 * C : a.part + ((int64_t)b * p.n + rank) * 2 * C;
     for (int c = t; c < 2 * C; c += nt) {
       const int which = c / C, cc = c - which * C;
-      const float* src = s_chan + (int64_t)which * nt * V + (cc / V) * V + cc % V;
+      float* src = s_chan + (int64_t)which * nt * V + cc;
       float s = 0.f;
       for (int k = 0; k < steps_px; ++k) s = __fadd_rn(s, src[(int64_t)k * cv * V]);
+      if (!kFilm || p.n == 1) {
+        out[c] = s;
+      } else {
+        src[0] = s;
+      }
+    }
+  }
+  if (kFilm && p.n > 1) {  // the sample's FiLM gradient: rank r sums channels r, r + n, ...
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every block's sums are in its shared memory
+    float* out = a.part + (int64_t)b * 2 * C;
+    for (int c = rank + p.n * t; c < 2 * C; c += p.n * nt) {
+      const int which = c / C, cc = c - which * C;
+      float* mine = s_chan + (int64_t)which * nt * V + cc;
+      float s = 0.f;
+      for (int r = 0; r < p.n; ++r) s = __fadd_rn(s, *cluster.map_shared_rank(mine, r));
       out[c] = s;
     }
   }
@@ -301,6 +331,7 @@ gn_bwd_cluster_kernel(const GnBwdArgs a, const NormPlan p) {
   };
   for (int64_t i = (int64_t)t * V; i < res; i += step) apply(xs, dys, i);
   for (int64_t i = res + (int64_t)t * V; i < span; i += step) apply(xg, dyg, i);
+  if (kFilm && p.n > 1) cg::this_cluster().sync();  // no block's sums vanish before they are read
 }
 
 // out[j] = sum over rows r = 0, 1, ... of part[r][j], in that order: dscale (j < C) and
@@ -314,11 +345,11 @@ __global__ void gn_bwd_reduce(const float* __restrict__ part, int rows, int widt
   out[j] = s;
 }
 
-template <typename T>
+template <typename T, bool kFilm>
 cudaError_t gn_bwd_set_attributes() {
   static bool done = false;
   if (done) return cudaSuccess;
-  auto kernel = gn_bwd_cluster_kernel<T>;
+  auto kernel = gn_bwd_cluster_kernel<T, kFilm>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDynamic);
   if (e == cudaSuccess)
@@ -327,30 +358,38 @@ cudaError_t gn_bwd_set_attributes() {
   return e;
 }
 
-template <typename T>
+template <typename T, bool kFilm>
 int launch_gn_bwd(const GnBwdArgs& a, float* dsb, const NormPlan& p, cudaStream_t st) {
   if (!norm_bwd_plan_ok(p, sizeof(T))) return (int)cudaErrorInvalidValue;
-  cudaError_t e = gn_bwd_set_attributes<T>();
+  cudaError_t e = gn_bwd_set_attributes<T, kFilm>();
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = gn_config(p, &attr, st);
-  e = cudaLaunchKernelEx(&cfg, gn_bwd_cluster_kernel<T>, a, p);
+  e = cudaLaunchKernelEx(&cfg, gn_bwd_cluster_kernel<T, kFilm>, a, p);
   if (e != cudaSuccess) return (int)e;
+  if (kFilm) return (int)cudaGetLastError();
   const int width = 2 * p.C;
   gn_bwd_reduce<<<(width + 255) / 256, 256, 0, st>>>(a.part, p.B * p.n, width, dsb);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kFilm>
 int max_clusters_gn_bwd(const NormPlan& p) {
   if (!norm_bwd_plan_ok(p, sizeof(T))) return -(int)cudaErrorInvalidValue;
-  cudaError_t e = gn_bwd_set_attributes<T>();
+  cudaError_t e = gn_bwd_set_attributes<T, kFilm>();
   if (e != cudaSuccess) return -(int)e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = gn_config(p, &attr, 0);
   int clusters = 0;
-  e = cudaOccupancyMaxActiveClusters(&clusters, gn_bwd_cluster_kernel<T>, &cfg);
+  e = cudaOccupancyMaxActiveClusters(&clusters, gn_bwd_cluster_kernel<T, kFilm>, &cfg);
   return e == cudaSuccess ? clusters : -(int)e;
+}
+
+template <bool kFilm>
+int dispatch_gn_bwd(const GnBwdArgs& a, float* out, const NormPlan& p, cudaStream_t st) {
+  if (p.elem_bytes == 4) return launch_gn_bwd<float, kFilm>(a, out, p, st);
+  if (p.elem_bytes == 2) return launch_gn_bwd<__nv_bfloat16, kFilm>(a, out, p, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -364,18 +403,30 @@ extern "C" int groupnorm_silu_bwd(const void* x, const void* dy, const void* sca
                                   void* dsb, int silu, const int* plan, void* stream) {
   const NormPlan p = read_norm_plan(plan);
   const GnBwdArgs a{x, dy, dx, scale, bias, aff_dtype, silu, static_cast<float*>(part)};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* out = static_cast<float*>(dsb);
-  if (p.elem_bytes == 4) return launch_gn_bwd<float>(a, out, p, st);
-  if (p.elem_bytes == 2) return launch_gn_bwd<__nv_bfloat16>(a, out, p, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_gn_bwd<false>(a, static_cast<float*>(dsb), p,
+                                static_cast<cudaStream_t>(stream));
 }
 
-// The clusters of the backward plan the current card can run at once (0: it cannot
-// place one), or a negative CUDA error code.
-extern "C" int gn_bwd_max_clusters(const int* plan) {
+// K1's backward. x, dy, dx: (B, H, W, C) of the plan's dtype; scale_shift: (B, 2C) FiLM
+// rows of aff_dtype (0 float32, 1 bfloat16), scale then shift; dss: (B, 2C) f32, their
+// gradient. plan: ops/norm_plan.py bwd_plan's ints. One launch.
+extern "C" int adagn_silu_bwd(const void* x, const void* dy, const void* scale_shift,
+                              int aff_dtype, void* dx, void* dss, int silu, const int* plan,
+                              void* stream) {
   const NormPlan p = read_norm_plan(plan);
-  if (p.elem_bytes == 4) return max_clusters_gn_bwd<float>(p);
-  if (p.elem_bytes == 2) return max_clusters_gn_bwd<__nv_bfloat16>(p);
+  const void* shift = static_cast<const char*>(scale_shift) + (int64_t)p.C * (aff_dtype ? 2 : 4);
+  const GnBwdArgs a{x, dy, dx, scale_shift, shift, aff_dtype, silu, static_cast<float*>(dss)};
+  return dispatch_gn_bwd<true>(a, nullptr, p, static_cast<cudaStream_t>(stream));
+}
+
+// The clusters of the backward plan (film: K1's kernel, else K2's) the current card can
+// run at once (0: it cannot place one), or a negative CUDA error code.
+extern "C" int gn_bwd_max_clusters(const int* plan, int film) {
+  const NormPlan p = read_norm_plan(plan);
+  if (p.elem_bytes == 4)
+    return film ? max_clusters_gn_bwd<float, true>(p) : max_clusters_gn_bwd<float, false>(p);
+  if (p.elem_bytes == 2)
+    return film ? max_clusters_gn_bwd<__nv_bfloat16, true>(p)
+                : max_clusters_gn_bwd<__nv_bfloat16, false>(p);
   return -(int)cudaErrorInvalidValue;
 }

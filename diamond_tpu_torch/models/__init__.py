@@ -1,6 +1,6 @@
 from .actor_critic import ActorCritic, ActorCriticNet, ActorCriticOutput
 from .agent import Agent
-from .denoiser import Conditioners, Denoiser, quantize_to_uint8_grid
+from .denoiser import Conditioners, Denoiser, DenoiserDraws, quantize_to_uint8_grid
 from .diffusion_sampler import DiffusionSampler, build_sigmas
 from .inner_model import InnerModel
 from .rew_end_model import RewEndModel, RewEndNet

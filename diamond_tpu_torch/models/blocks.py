@@ -12,10 +12,12 @@ them from a ``torch.Generator`` with the initialisers the JAX package mirrors
 
 Both norms run through the fused kernels (ops/fused_norms.py) and every 3x3 conv through
 the implicit-GEMM kernel (ops/conv3x3.py), as blocks.py does under DIAMOND_TPU_PALLAS=1.
-GroupNorm (K2) and the stride-1 3x3 conv (K3) are differentiable through backward
-kernels, so Conv3x3, GroupNorm, SmallResBlock and Conv1x1 pass gradients to their f32
-parameters through the casts to ``dtype``, as the JAX blocks do (in bf16 their weight
-gradients pass through bf16). AdaGroupNorm (K1) and stride-2 convs have no backward yet.
+All of them are differentiable through backward kernels: GroupNorm (K2), AdaGroupNorm
+(K1) and the 3x3 conv (K3) at stride 1 and 2, so every block, the UNet included, passes
+gradients to its f32 parameters through the casts to ``dtype``, as the JAX blocks do (in
+bf16 their weight gradients pass through bf16). The attention and the nearest upsample
+are plain PyTorch under autograd, as the JAX package computes them outside any Pallas
+kernel. The int8 path below is inference only: its kernels refuse a gradient.
 
 The static int8 rollout (ops/quant.py): Conv3x3, Conv1x1, QDense (and the LSTM cell)
 are sites with three cases inside an int8 scope: calibrating (record the input range,

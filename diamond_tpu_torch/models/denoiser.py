@@ -1,18 +1,23 @@
-"""EDM (Karras et al.) preconditioning around InnerModel, inference half
-(diamond_tpu/models/denoiser.py). The training loss comes with the training slice.
+"""EDM (Karras et al.) preconditioning around InnerModel (diamond_tpu/models/denoiser.py):
+the denoising evaluation the sampler calls, and the autoregressive training loss.
 
 Exact-behavior notes carried over: the offset-noise sigma is folded into the
 conditioners, and the output is snapped to the 256-level [-1, 1] grid with a floor
 (the reference's ``.byte()`` truncation).
+
+The loss draws its random numbers from ``DenoiserDraws`` (injected, so a test can hand
+it the JAX package's draws) or from an explicit ``torch.Generator``. The JAX package
+recomputes each window's U-Net forward in the backward (``jax.checkpoint``), a TPU
+memory-layout trade; the port keeps the activations instead.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from ..config import DenoiserConfig
+from ..config import DenoiserConfig, SigmaDistributionConfig
 from .inner_model import InnerModel
 
 
@@ -23,6 +28,25 @@ class Conditioners(NamedTuple):
     c_out: torch.Tensor
     c_skip: torch.Tensor
     c_noise: torch.Tensor
+
+
+class DenoiserDraws(NamedTuple):
+    """The random numbers of ``Denoiser.loss``, stacked over its ``S`` windows: the
+    standard normals of the training sigma (S, B), of the offset noise (S, B, 1, 1, C)
+    and of the iid noise (S, B, H, W, C)."""
+
+    sigma: torch.Tensor
+    offset: torch.Tensor
+    noise: torch.Tensor
+
+
+def draw_loss_noise(windows: int, b: int, hwc: Tuple[int, int, int],
+                    generator: Optional[torch.Generator], device) -> DenoiserDraws:
+    """``DenoiserDraws`` of ``windows`` windows at batch b and frame size hwc from
+    ``generator`` (on ``device``)."""
+    h, w, c = hwc
+    rnd = lambda *shape: torch.randn(shape, generator=generator, device=device)  # noqa: E731
+    return DenoiserDraws(rnd(windows, b), rnd(windows, b, 1, 1, c), rnd(windows, b, h, w, c))
 
 
 def quantize_to_uint8_grid(x: torch.Tensor) -> torch.Tensor:
@@ -78,3 +102,51 @@ class Denoiser:
         cs = self.compute_conditioners(sigma)
         model_output = self.compute_model_output(noisy_next_obs, obs, act, cs, obs_features)
         return self.wrap_model_output(noisy_next_obs, model_output, cs)
+
+    # -- training ----------------------------------------------------------------
+
+    @staticmethod
+    def sample_sigma_training(normal: torch.Tensor, cfg: SigmaDistributionConfig
+                              ) -> torch.Tensor:
+        """sigma = clip(exp(normal * scale + loc), sigma_min, sigma_max) from standard
+        normals (B,)."""
+        return torch.clamp(torch.exp(normal * cfg.scale + cfg.loc), cfg.sigma_min, cfg.sigma_max)
+
+    def apply_noise(self, x: torch.Tensor, sigma: torch.Tensor, offset: torch.Tensor,
+                    noise: torch.Tensor) -> torch.Tensor:
+        """x (B, H, W, C) plus per-channel offset noise (standard normals offset (B, 1, 1,
+        C), scaled by sigma_offset_noise) and iid noise (B, H, W, C) scaled by sigma."""
+        return x + self.cfg.sigma_offset_noise * offset + noise * sigma[:, None, None, None]
+
+    def loss(self, obs: torch.Tensor, act: torch.Tensor, mask: torch.Tensor,
+             sigma_cfg: SigmaDistributionConfig, draws: Optional[DenoiserDraws] = None,
+             generator: Optional[torch.Generator] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The autoregressive training loss (the JAX package's ``Denoiser.loss``): obs (B,
+        T, H, W, C) float in [-1, 1], act (B, T) int, mask (B, T) bool. Over the ``T - n``
+        windows (n conditioning frames) the masked mean squared error of the F-space
+        prediction, each window conditioned on the previous window's quantized,
+        detached prediction in place of its last frame. Random numbers from ``draws``,
+        else from ``generator``. Returns (loss, {"loss_denoising": detached loss})."""
+        n = self.cfg.inner_model.num_steps_conditioning
+        b, t_total, h, w, c = obs.shape
+        windows = t_total - n
+        if draws is None:
+            draws = draw_loss_noise(windows, b, (h, w, c), generator, obs.device)
+        frames = list(obs.unbind(1))
+        loss = obs.new_zeros(())
+        for i in range(windows):
+            cond = torch.stack(frames[i:n + i], dim=3).reshape(b, h, w, n * c)  # frame-major
+            next_obs = frames[n + i]
+            sigma = self.sample_sigma_training(draws.sigma[i], sigma_cfg)
+            noisy = self.apply_noise(next_obs, sigma, draws.offset[i], draws.noise[i])
+            cs = self.compute_conditioners(sigma)
+            model_output = self.compute_model_output(noisy, cond, act[:, i:n + i], cs)
+            target = (next_obs - cs.c_skip * noisy) / cs.c_out
+            se = (model_output - target) ** 2
+            m = mask[:, n + i].float()
+            denom = torch.clamp_min(m.sum() * (h * w * c), 1.0)
+            loss = loss + (se.sum(dim=(1, 2, 3)) * m).sum() / denom
+            frames[n + i] = self.wrap_model_output(noisy, model_output.detach(), cs)
+        loss = loss / windows
+        return loss, {"loss_denoising": loss.detach()}

@@ -7,7 +7,9 @@ channels, computed once per sampled frame (``compute_obs_features``) and shared 
 sigma step: conv(concat(a, b), K) = conv(a, K[..a..]) + conv(b, K[..b..]) + bias.
 That split conv goes around the ``conv_in`` module, so in the sampler ``conv_in`` is never
 calibrated and never quantized: it stays on the bf16/f32 kernel even with every int8
-site selected, as in the JAX package.
+site selected, as in the JAX package. Training (``Denoiser.loss``) passes no
+``obs_features``: ``conv_in`` runs on the 15-channel concatenation, where only its
+weights need a gradient.
 """
 
 from __future__ import annotations

@@ -11,11 +11,16 @@ bf16 runs the halo-tile wgmma kernel (``kernels/csrc/conv_halo.cuh``) on the lau
 of ``conv_plan.k3_plan`` for every shape, Cin = 3, 6 and 12 included (zero-padded to 16
 channels in the kernel); f32 (the parity runs) runs the CUDA-core kernel.
 
-At stride 1 ``conv3x3`` is differentiable (``Conv3x3Fn``): the data gradient is K3
-itself on dy with the flipped, transposed kernel (``conv3x3_dgrad``), the weight
-gradient the hand-written kernel of ``kernels/csrc/conv3x3_wgrad.cu``
-(``conv3x3_wgrad``), each beside its plain version. The JAX package's convs get these
-from XLA's VJP of ``lax.conv``.
+``conv3x3`` is differentiable (``Conv3x3Fn``): the data gradient is K3 itself on dy
+with the flipped, transposed kernel (``conv3x3_dgrad``), the weight gradient the
+hand-written kernel of ``kernels/csrc/conv3x3_wgrad.cu`` (``conv3x3_wgrad``), each
+beside its plain version. The JAX package's convs get these from XLA's VJP of
+``lax.conv``. At stride 2 both run on the stride-1 kernels, fed the zero-interleaved
+cotangent dyz (``zero_interleave``: x's spatial size, dyz[2i, 2j] = dy[i, j], zeros
+elsewhere): the stride-2 SAME conv is the stride-1 one read at even positions, so its
+gradients are the stride-1 conv's for dyz, exactly, for odd H and W too. dyz is one
+zero fill and one strided copy; the kernels then do 4x the MACs the stride-2 gradient
+needs.
 
 ``<wrapper>.launches`` counts kernel launches and ``<wrapper>.shapes`` the call
 signatures, for ``conv3x3``, ``conv3x3_dgrad`` and ``conv3x3_wgrad`` apart.
@@ -89,26 +94,25 @@ def _conv3x3_fwd(x, kernel, bias, stride):
 
 
 class Conv3x3Fn(torch.autograd.Function):
-    """K3 with its gradient (stride 1): the forward is K3; the data gradient is K3 on dy
-    with the flipped, transposed kernel (``conv3x3_dgrad``), skipped where x needs no
-    gradient; the weight gradient is the K3 weight-gradient kernel (``conv3x3_wgrad``);
-    the bias gradient an f32 sum of dy. On CPU tensors each is its plain version."""
+    """K3 with its gradient (stride 1 or 2): the forward is K3; the data gradient is K3
+    on dy (at stride 2 on dyz) with the flipped, transposed kernel (``conv3x3_dgrad``),
+    skipped where x needs no gradient; the weight gradient is the K3 weight-gradient
+    kernel (``conv3x3_wgrad``); the bias gradient an f32 sum of dy. On CPU tensors each
+    is its plain version."""
 
     @staticmethod
     def forward(ctx, x, kernel, bias, stride):
-        if stride != 1:
-            raise ValueError("conv3x3: no gradient at stride 2 (K3's stride-2 data and "
-                             "weight gradients are not ported)")
         ctx.save_for_backward(x, kernel)
-        ctx.has_bias = bias is not None
+        ctx.has_bias, ctx.stride = bias is not None, stride
         return _conv3x3_fwd(x, kernel, bias, stride)
 
     @staticmethod
     def backward(ctx, dy):
         x, kernel = ctx.saved_tensors
-        dy = dy.contiguous()
-        dx = conv3x3_dgrad(dy, kernel) if ctx.needs_input_grad[0] else None
-        dw = conv3x3_wgrad(x, dy) if ctx.needs_input_grad[1] else None
+        dy, s = dy.contiguous(), ctx.stride
+        hw = tuple(x.shape[1:3])
+        dx = conv3x3_dgrad(dy, kernel, s, hw) if ctx.needs_input_grad[0] else None
+        dw = conv3x3_wgrad(x, dy, s) if ctx.needs_input_grad[1] else None
         db = (dy.sum(dim=(0, 1, 2), dtype=torch.float32)
               if ctx.has_bias and ctx.needs_input_grad[2] else None)
         return dx, dw, db, None
@@ -118,8 +122,8 @@ def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor] 
             stride: int = 1) -> torch.Tensor:
     """3x3 SAME conv: x (B, H, W, Cin), kernel (3, 3, Cin, Cout) in x's dtype, bias
     (Cout,) or None. Output (B, (H-1)//stride+1, (W-1)//stride+1, Cout) in x's dtype.
-    Differentiable at stride 1: on a CUDA tensor that needs a gradient through
-    ``Conv3x3Fn``; under no grad, or where no input needs one, one K3 launch."""
+    Differentiable: on a CUDA tensor that needs a gradient through ``Conv3x3Fn``; under
+    no grad, or where no input needs one, one K3 launch."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, kernel, bias, stride)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
@@ -134,45 +138,75 @@ def flip_kernel(kernel: torch.Tensor) -> torch.Tensor:
     return kernel.flip(0, 1).transpose(2, 3).contiguous()
 
 
-def conv3x3_dgrad_plain(dy: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """dx of the stride-1 conv with ``kernel`` for the cotangent dy, in dy's dtype."""
-    return conv3x3_plain(dy, flip_kernel(kernel))
+def zero_interleave(dy: torch.Tensor, hw, stride: int) -> torch.Tensor:
+    """The cotangent of the stride-``stride`` conv as the stride-1 conv's: dy (B, Ho, Wo,
+    C) at stride 1, else dyz (B, H, W, C) with dyz[:, 2i, 2j] = dy[:, i, j] and zeros
+    elsewhere, for the conv's input size hw = (H, W) (one fill, one strided copy)."""
+    h, w = hw
+    if stride not in (1, 2):
+        raise ValueError(f"conv3x3 gradients: stride must be 1 or 2, got {stride}")
+    if tuple(dy.shape[1:3]) != ((h - 1) // stride + 1, (w - 1) // stride + 1):
+        raise ValueError(f"conv3x3 gradients: dy {tuple(dy.shape)} is not the stride-{stride} "
+                         f"output of a {h}x{w} input")
+    if stride == 1:
+        return dy
+    dyz = dy.new_zeros((dy.shape[0], h, w, dy.shape[-1]))
+    dyz[:, ::2, ::2] = dy
+    return dyz
 
 
-def conv3x3_dgrad(dy: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """The data gradient of the stride-1 conv: K3 launched on dy (B, H, W, Cout) with
-    the flipped, transposed kernel (3, 3, Cout, Cin) in dy's dtype. Counted in
-    ``conv3x3_dgrad.launches``, not in K3's forward count."""
+def conv3x3_dgrad_plain(dy: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
+                        hw=None) -> torch.Tensor:
+    """dx of the conv with ``kernel`` at ``stride`` on an input of spatial size hw (dy's
+    at stride 1) for the cotangent dy, in dy's dtype: the stride-1 conv of dyz with the
+    flipped kernel."""
+    dyz = zero_interleave(dy, hw or tuple(dy.shape[1:3]), stride)
+    return conv3x3_plain(dyz, flip_kernel(kernel))
+
+
+def conv3x3_dgrad(dy: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
+                  hw=None) -> torch.Tensor:
+    """The data gradient of the conv with ``kernel`` (3, 3, Cin, Cout) at ``stride`` on an
+    input of spatial size hw (dy's at stride 1): K3 launched on dy (B, Ho, Wo, Cout), at
+    stride 2 on dyz, with the flipped, transposed kernel (3, 3, Cout, Cin) in dy's dtype.
+    Counted in ``conv3x3_dgrad.launches``, not in K3's forward count; its signature is
+    (dy's shape, Cin, stride, hw, dtype)."""
     if dy.device.type == "cpu":
-        return conv3x3_dgrad_plain(dy, kernel)
-    y, sig = _conv3x3_launch(dy, flip_kernel(kernel.to(dy.dtype)), None, 1, "conv3x3_dgrad")
+        return conv3x3_dgrad_plain(dy, kernel, stride, hw)
+    hw = tuple(hw or dy.shape[1:3])
+    dyz = zero_interleave(dy, hw, stride)
+    y, _ = _conv3x3_launch(dyz, flip_kernel(kernel.to(dy.dtype)), None, 1, "conv3x3_dgrad")
     conv3x3_dgrad.launches += 1
-    conv3x3_dgrad.shapes[sig] += 1
+    conv3x3_dgrad.shapes[(tuple(dy.shape), kernel.shape[2], stride, hw, str(dy.dtype))] += 1
     return y
 
 
-def conv3x3_wgrad_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """dW (3, 3, Cin, Cout) of the stride-1 conv on x for the cotangent dy, f32 sums
-    rounded once to x's dtype."""
+def conv3x3_wgrad_plain(x: torch.Tensor, dy: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """dW (3, 3, Cin, Cout) of the conv at ``stride`` on x for the cotangent dy, f32 sums
+    rounded once to x's dtype: the stride-1 weight gradient for dyz."""
+    dyz = zero_interleave(dy, tuple(x.shape[1:3]), stride)
     dw = torch.nn.grad.conv2d_weight(x.float().permute(0, 3, 1, 2),
                                      (dy.shape[-1], x.shape[-1], 3, 3),
-                                     dy.float().permute(0, 3, 1, 2), padding=1)
+                                     dyz.float().permute(0, 3, 1, 2), padding=1)
     return dw.permute(2, 3, 1, 0).to(x.dtype).contiguous()
 
 
-def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """dW[ky, kx, ci, co] = sum over b, y, x of x[b, y+ky-1, x+kx-1, ci] * dy[b, y, x, co]
-    (stride 1, SAME): x (B, H, W, Cin), dy (B, H, W, Cout) of x's dtype; dW in x's dtype.
-    One call of the K3 weight-gradient kernel (kernels/csrc/conv3x3_wgrad.cu: the
-    partials of a split of the pixels, then their fixed-order sum)."""
+def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """dW[ky, kx, ci, co] = sum over b, y, x of x[b, y+ky-1, x+kx-1, ci] * dyz[b, y, x, co]
+    (SAME): x (B, H, W, Cin), dy (B, Ho, Wo, Cout) of x's dtype, the cotangent of the
+    conv at ``stride`` (dyz = dy at stride 1, its zero interleave at stride 2); dW in x's
+    dtype. One call of the K3 weight-gradient kernel (kernels/csrc/conv3x3_wgrad.cu: the
+    partials of a split of the pixels, then their fixed-order sum); its signature is
+    (x's shape, Cout, stride, dtype)."""
     if x.device.type == "cpu":
-        return conv3x3_wgrad_plain(x, dy)
+        return conv3x3_wgrad_plain(x, dy, stride)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_wgrad: x must be a CPU or CUDA tensor, got {x.device}")
-    if (x.dim() != 4 or dy.dim() != 4 or dy.shape[:3] != x.shape[:3] or dy.dtype != x.dtype
+    if (x.dim() != 4 or dy.dim() != 4 or dy.shape[0] != x.shape[0] or dy.dtype != x.dtype
             or dy.device != x.device or not x.is_contiguous() or not dy.is_contiguous()):
-        raise ValueError("conv3x3_wgrad: x (B, H, W, Cin) and dy (B, H, W, Cout) must be "
+        raise ValueError("conv3x3_wgrad: x (B, H, W, Cin) and dy (B, Ho, Wo, Cout) must be "
                          "contiguous, of one dtype and device")
+    dy = zero_interleave(dy, tuple(x.shape[1:3]), stride)
     code = kernels.dtype_code(x.dtype)
     b, h, w, cin = x.shape
     cout = dy.shape[-1]
@@ -194,7 +228,7 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
                                                stream)
     kernels.check(code, "conv3x3_wgrad")
     conv3x3_wgrad.launches += 1
-    conv3x3_wgrad.shapes[(tuple(x.shape), cout, str(x.dtype))] += 1
+    conv3x3_wgrad.shapes[(tuple(x.shape), cout, stride, str(x.dtype))] += 1
     return dw
 
 

@@ -45,6 +45,15 @@ def true_div(t: torch.Tensor, d: float) -> torch.Tensor:
     return t / torch.full((), d, dtype=t.dtype, device=t.device)
 
 
+def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise where a forward-only int8 wrapper would cut the autograd graph: under grad
+    mode, an input of its CUDA call needs a gradient. The int8 path serves inference
+    only (the rollout runs it under no grad); training runs the bf16 kernels."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: int8 inference only, it has no gradient; an input "
+                           "needs one under grad mode (call it under torch.no_grad())")
+
+
 def static_scale(act_max: torch.Tensor) -> torch.Tensor:
     """s_c = max(act_max, 1e-8) * ACT_SCALE_HEADROOM / 127 in f32, in that order."""
     return true_div(torch.clamp_min(act_max.float(), 1e-8) * ACT_SCALE_HEADROOM, 127.0)

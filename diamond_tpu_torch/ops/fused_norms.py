@@ -9,11 +9,11 @@ runs the plain PyTorch version beside it, written to the JAX package's formulas:
 single-pass moments E[x^2] - E[x]^2 per group, eps 1e-5, one rounding to x's dtype at
 the end. The FiLM rows and the affine are read as they come, f32 or bf16.
 
-``groupnorm_silu`` is differentiable: where an input needs a gradient its backward is
-a kernel too, ``groupnorm_silu_bwd`` (``kernels/csrc/gn_bwd.cu``), the VJP of the JAX
-package's ``_gn_silu_ref`` (its custom_vjp backward), beside its plain version
-``groupnorm_silu_bwd_plain``. ``adagn_silu`` (K1) is forward-only: no training step of
-the port differentiates through it yet.
+Both are differentiable: where an input needs a gradient the backward is a kernel too,
+``groupnorm_silu_bwd`` and ``adagn_silu_bwd`` (one template in ``kernels/csrc/gn_bwd.cu``),
+the VJPs of the JAX package's ``_gn_silu_ref`` and ``_adagn_silu_ref`` (its custom_vjp
+backwards), each beside its plain version (``groupnorm_silu_bwd_plain``,
+``adagn_silu_bwd_plain``).
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches`` and the call
 signatures it launched with in ``<wrapper>.shapes``.
@@ -63,22 +63,31 @@ def groupnorm_silu_bwd_plain(x: torch.Tensor, dy: torch.Tensor, scale: torch.Ten
                              bias: torch.Tensor, num_groups: int, silu: bool = True):
     """The VJP of ``groupnorm_silu_plain`` (the JAX package's ``_gn_silu_ref``) at x for
     the cotangent dy, written out in f32: (dx in x's dtype, dscale, dbias f32 (C,))."""
-    n, h, w, c = x.shape
+    dx, xh, d = _norm_silu_grads(x, dy, scale.float(), bias.float(), num_groups, silu)
+    return dx.to(x.dtype), (d * xh).sum(dim=(0, 1, 2)), d.sum(dim=(0, 1, 2))
+
+
+def _group_mean(v: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """Per sample and group mean of v (B, H, W, C), broadcast back to (B, 1, 1, C)."""
+    n, h, w, c = v.shape
+    m = v.reshape(n, h * w, num_groups, c // num_groups).mean(dim=(1, 3))
+    return m.repeat_interleave(c // num_groups, dim=1).reshape(n, 1, 1, c)
+
+
+def _norm_silu_grads(x, dy, mul, add, num_groups, silu):
+    """(dx f32, x̂, dO) of [SiLU](x̂ * mul + add) for the cotangent dy, with x̂ the group
+    norm of x: dO = dy * SiLU'(o) and dx = inv * (dO*mul - mean_G(dO*mul) -
+    x̂ * mean_G(dO*mul*x̂))."""
     x32, mean_c, inv_c = _group_moments(x, num_groups)
     xh = (x32 - mean_c) * inv_c
     d = dy.float()
     if silu:
-        o = xh * scale.float() + bias.float()
+        o = xh * mul + add
         s = torch.sigmoid(o)
         d = d * (s * (1 + o * (1 - s)))
-    gsc = d * scale.float()
-
-    def group_mean(v):
-        m = v.reshape(n, h * w, num_groups, c // num_groups).mean(dim=(1, 3))
-        return m.repeat_interleave(c // num_groups, dim=1).reshape(n, 1, 1, c)
-
-    dx = inv_c * (gsc - group_mean(gsc) - xh * group_mean(gsc * xh))
-    return dx.to(x.dtype), (d * xh).sum(dim=(0, 1, 2)), d.sum(dim=(0, 1, 2))
+    g = d * mul
+    dx = inv_c * (g - _group_mean(g, num_groups) - xh * _group_mean(g * xh, num_groups))
+    return dx, xh, d
 
 
 def adagn_silu_plain(x: torch.Tensor, scale_shift: torch.Tensor, num_groups: int,
@@ -91,6 +100,17 @@ def adagn_silu_plain(x: torch.Tensor, scale_shift: torch.Tensor, num_groups: int
     if silu:
         y = y * torch.sigmoid(y)
     return y.to(x.dtype)
+
+
+def adagn_silu_bwd_plain(x: torch.Tensor, dy: torch.Tensor, scale_shift: torch.Tensor,
+                         num_groups: int, silu: bool = True):
+    """The VJP of ``adagn_silu_plain`` (the JAX package's ``_adagn_silu_ref``) at x for
+    the cotangent dy, written out in f32: (dx in x's dtype, d_scale_shift f32 (B, 2C):
+    per sample the sums over H, W of dO * x̂, then of dO)."""
+    c = x.shape[-1]
+    ss = scale_shift.float()[:, None, None, :]
+    dx, xh, d = _norm_silu_grads(x, dy, 1.0 + ss[..., :c], ss[..., c:], num_groups, silu)
+    return dx.to(x.dtype), torch.cat([(d * xh).sum(dim=(1, 2)), d.sum(dim=(1, 2))], dim=1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,14 +127,15 @@ def placed_plan(plan: NormPlan, q8: bool, device: int) -> NormPlan:
 
 
 @functools.lru_cache(maxsize=None)
-def placed_bwd_plan(fwd: NormPlan, device: int) -> NormPlan:
-    """K2's backward plan on the forward plan ``fwd`` (``norm_plan.bwd_plan``), or its
-    8-block form where the card cannot place a cluster of more than 8 backward blocks."""
+def placed_bwd_plan(fwd: NormPlan, device: int, film: bool = False) -> NormPlan:
+    """The backward plan (K2's, or K1's with ``film``) on the forward plan ``fwd``
+    (``norm_plan.bwd_plan``), or its 8-block form where the card cannot place a cluster
+    of more than 8 backward blocks."""
     plan = bwd_plan(fwd)
     if plan.n <= PORTABLE_CLUSTER:
         return plan
     with torch.cuda.device(device):
-        clusters = kernels.lib().gn_bwd_max_clusters(plan.c_ints)
+        clusters = kernels.lib().gn_bwd_max_clusters(plan.c_ints, int(film))
     kernels.check(max(0, -clusters), "gn_bwd_max_clusters")
     if clusters > 0:
         return plan
@@ -150,17 +171,21 @@ def affine_rows(x: torch.Tensor, name: str, *rows: torch.Tensor):
     return [r.contiguous() for r in rows], kernels.dtype_code(rows[0].dtype)
 
 
-def adagn_silu(x: torch.Tensor, scale_shift: torch.Tensor, num_groups: int,
-               silu: bool = True) -> torch.Tensor:
-    """[SiLU](GN(x) * (1 + scale) + shift); x (B, H, W, C), scale_shift (B, 2C) is the
-    FiLM projection of the conditioning vector, split at C."""
+def _film_rows(x: torch.Tensor, scale_shift: torch.Tensor, name: str):
+    """(rows, dtype code) of K1's FiLM rows (B, 2C) as the kernels read them."""
+    b, c = x.shape[0], x.shape[-1]
+    if tuple(scale_shift.shape) != (b, 2 * c):
+        raise ValueError(f"{name}: scale_shift must be ({b}, {2 * c})")
+    (ss,), code = affine_rows(x, name, scale_shift)
+    return ss, code
+
+
+def _adagn_silu_fwd(x, scale_shift, num_groups, silu):
+    """One K1 launch (or its plain version on a CPU tensor), outside autograd."""
     if x.device.type == "cpu":
         return adagn_silu_plain(x, scale_shift, num_groups, silu)
     plan = launch_plan(x, num_groups, "adagn_silu")
-    b, h, w, c = x.shape
-    if tuple(scale_shift.shape) != (b, 2 * c):
-        raise ValueError(f"adagn_silu: scale_shift must be ({b}, {2 * c})")
-    (ss,), code = affine_rows(x, "adagn_silu", scale_shift)
+    ss, code = _film_rows(x, scale_shift, "adagn_silu")
     y = torch.empty_like(x)
     kernels.check(kernels.lib().adagn_silu_fwd(
         x.data_ptr(), ss.data_ptr(), code, y.data_ptr(), int(silu), plan.c_ints,
@@ -168,6 +193,67 @@ def adagn_silu(x: torch.Tensor, scale_shift: torch.Tensor, num_groups: int,
     adagn_silu.launches += 1
     adagn_silu.shapes[(tuple(x.shape), str(x.dtype), bool(silu))] += 1
     return y
+
+
+class AdaGroupNormSiLU(torch.autograd.Function):
+    """K1 with its gradient: the forward is the K1 launch, the backward the K1 backward
+    kernel (``adagn_silu_bwd``); on CPU tensors both are the plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, scale_shift, num_groups, silu):
+        ctx.save_for_backward(x, scale_shift)
+        ctx.num_groups, ctx.silu = num_groups, silu
+        return _adagn_silu_fwd(x, scale_shift, num_groups, silu)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale_shift = ctx.saved_tensors
+        dx, dss = adagn_silu_bwd(x, dy.contiguous(), scale_shift, ctx.num_groups, ctx.silu)
+        return dx, dss.to(scale_shift.dtype), None, None
+
+
+def adagn_silu(x: torch.Tensor, scale_shift: torch.Tensor, num_groups: int,
+               silu: bool = True) -> torch.Tensor:
+    """[SiLU](GN(x) * (1 + scale) + shift); x (B, H, W, C), scale_shift (B, 2C) is the
+    FiLM projection of the conditioning vector, split at C. Differentiable: on a CUDA
+    tensor that needs a gradient through ``AdaGroupNormSiLU``; under no grad, or where
+    no input needs one, one K1 launch and nothing else."""
+    if x.device.type == "cpu":
+        return adagn_silu_plain(x, scale_shift, num_groups, silu)
+    if torch.is_grad_enabled() and (x.requires_grad or scale_shift.requires_grad):
+        return AdaGroupNormSiLU.apply(x, scale_shift, num_groups, silu)
+    return _adagn_silu_fwd(x, scale_shift, num_groups, silu)
+
+
+def _bwd_operands(x, dy, num_groups, name, film):
+    """The backward plan of a call on x, with dy checked against x."""
+    plan = placed_bwd_plan(launch_plan(x, num_groups, name), x.device.index, film)
+    if (dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device
+            or not dy.is_contiguous() or dy.data_ptr() % 16):
+        raise ValueError(f"{name}: dy must be a contiguous, 16-byte aligned tensor of x's "
+                         "shape, dtype and device")
+    return plan
+
+
+def adagn_silu_bwd(x: torch.Tensor, dy: torch.Tensor, scale_shift: torch.Tensor,
+                   num_groups: int, silu: bool = True):
+    """(dx, d_scale_shift) of [SiLU](GN(x) * (1 + scale) + shift) for the cotangent dy
+    (x's shape and dtype): dx in x's dtype, d_scale_shift f32 (B, 2C). One launch of the
+    K1 backward kernel (kernels/csrc/gn_bwd.cu: one cluster per sample sums its own FiLM
+    gradient through distributed shared memory)."""
+    if x.device.type == "cpu":
+        return adagn_silu_bwd_plain(x, dy, scale_shift, num_groups, silu)
+    plan = _bwd_operands(x, dy, num_groups, "adagn_silu_bwd", True)
+    ss, code = _film_rows(x, scale_shift, "adagn_silu_bwd")
+    dx = torch.empty_like(x)
+    dss = torch.empty((x.shape[0], 2 * x.shape[-1]), device=x.device, dtype=torch.float32)
+    kernels.check(kernels.lib().adagn_silu_bwd(
+        x.data_ptr(), dy.data_ptr(), ss.data_ptr(), code, dx.data_ptr(), dss.data_ptr(),
+        int(silu), plan.c_ints, torch.cuda.current_stream(x.device).cuda_stream),
+        "adagn_silu_bwd")
+    adagn_silu_bwd.launches += 1
+    adagn_silu_bwd.shapes[(tuple(x.shape), str(x.dtype), bool(silu), str(ss.dtype))] += 1
+    return dx, dss
 
 
 def _groupnorm_silu_fwd(x, scale, bias, num_groups, silu):
@@ -227,15 +313,10 @@ def groupnorm_silu_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
     sum of its per-block partials)."""
     if x.device.type == "cpu":
         return groupnorm_silu_bwd_plain(x, dy, scale, bias, num_groups, silu)
-    fwd = launch_plan(x, num_groups, "groupnorm_silu_bwd")
-    plan = placed_bwd_plan(fwd, x.device.index)
+    plan = _bwd_operands(x, dy, num_groups, "groupnorm_silu_bwd", False)
     c = x.shape[-1]
     if scale.shape != (c,) or bias.shape != (c,):
         raise ValueError(f"groupnorm_silu_bwd: scale and bias must be ({c},)")
-    if (dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device
-            or not dy.is_contiguous() or dy.data_ptr() % 16):
-        raise ValueError("groupnorm_silu_bwd: dy must be a contiguous, 16-byte aligned "
-                         "tensor of x's shape, dtype and device")
     (sc, bi), code = affine_rows(x, "groupnorm_silu_bwd", scale, bias)
     dx = torch.empty_like(x)
     part = torch.empty((plan.blocks, 2, c), device=x.device, dtype=torch.float32)
@@ -251,6 +332,8 @@ def groupnorm_silu_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
 
 adagn_silu.launches = 0
 adagn_silu.shapes = Counter()
+adagn_silu_bwd.launches = 0
+adagn_silu_bwd.shapes = Counter()
 groupnorm_silu.launches = 0
 groupnorm_silu.shapes = Counter()
 groupnorm_silu_bwd.launches = 0

@@ -17,6 +17,9 @@ plain PyTorch version beside it. Two epilogues:
 kernel takes, and ``conv3x3_qtensor`` convolves a QTensor through K5 (ops/conv3x3_q8.py)
 with the per-sample scale in its epilogue.
 
+The wrappers are forward-only: on CUDA tensors, under grad mode, they refuse an input
+that needs a gradient (``conv3x3_q8.refuse_grad``) instead of cutting the graph.
+
 Each wrapper counts its kernel launches in ``<wrapper>.launches`` and the call
 signatures it launched with in ``<wrapper>.shapes``.
 """
@@ -29,7 +32,7 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
-from .conv3x3_q8 import conv3x3_int8, quantize_static, true_div
+from .conv3x3_q8 import conv3x3_int8, quantize_static, refuse_grad, true_div
 from .fused_norms import (GN_EPS, _group_moments, adagn_silu_plain, affine_rows,
                           groupnorm_silu_plain, launch_plan)
 
@@ -91,6 +94,7 @@ def norm_affine_silu_q8(x: torch.Tensor, mean_c: torch.Tensor, inv_c: torch.Tens
     (1 + scale, shift) or GroupNorm's (scale, bias) repeated over B."""
     if x.device.type == "cpu":
         return norm_affine_silu_q8_plain(x, mean_c, inv_c, gamma, beta)
+    refuse_grad("norm_affine_silu_q8", x, mean_c, inv_c, gamma, beta)
     threads, s, span = _span_launch(x, "norm_affine_silu_q8")
     b, h, w, c = x.shape
     rows = [_on(t, x) for t in (mean_c, inv_c, gamma, beta)]
@@ -153,6 +157,7 @@ def adagn_silu_q8(x: torch.Tensor, scale_shift: torch.Tensor, num_groups: int,
     ``quantize_static(adagn_silu(x, scale_shift, num_groups), act_max)``."""
     if x.device.type == "cpu":
         return adagn_silu_q8_plain(x, scale_shift, num_groups, act_max)
+    refuse_grad("adagn_silu_q8", x, scale_shift)
     plan = launch_plan(x, num_groups, "adagn_silu_q8", q8=True)
     b, h, w, c = x.shape
     if tuple(scale_shift.shape) != (b, 2 * c):
@@ -175,6 +180,7 @@ def groupnorm_silu_q8(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     ``quantize_static(groupnorm_silu(x, scale, bias, num_groups), act_max)``."""
     if x.device.type == "cpu":
         return groupnorm_silu_q8_plain(x, scale, bias, num_groups, act_max)
+    refuse_grad("groupnorm_silu_q8", x, scale, bias)
     plan = launch_plan(x, num_groups, "groupnorm_silu_q8", q8=True)
     c = x.shape[-1]
     if scale.shape != (c,) or bias.shape != (c,):

@@ -24,9 +24,11 @@ and a chunk is a whole number of steps of threads * V elements, so each thread k
 same V channels. Besides x, a block's dynamic shared memory holds C floats (K4's 1/s_c)
 and the n ranks' G partial moments.
 
-K2's backward (kernels/csrc/gn_bwd.cu) runs on its forward's plan with x and dy both
-in shared memory (``bwd_plan``): the same clusters and pixel spans, so that it
-recomputes the forward's moments bit for bit.
+The backward kernels of K2 and K1 (one template, kernels/csrc/gn_bwd.cu) run on their
+forward's plan with x and dy both in shared memory (``bwd_plan``): the same clusters and
+pixel spans, so that they recompute the forward's moments bit for bit. K1's backward
+sums each sample's FiLM gradient inside its cluster, in the per-thread sums' space, so
+it needs no shared memory beyond K2's.
 
 Plans are pure functions of the call's shape and dtype, cached, and computed on the
 host, so the CPU tests hold them to the card's limits. The kernel checks the plan
@@ -147,7 +149,7 @@ def bwd_extra(p: NormPlan) -> int:
 
 @functools.lru_cache(maxsize=None)
 def bwd_plan(p: NormPlan) -> NormPlan:
-    """The K2 backward's plan (kernels/csrc/gn_bwd.cu) for the forward plan ``p``: the
+    """The K2 and K1 backwards' plan (kernels/csrc/gn_bwd.cu) for the forward plan ``p``: the
     same clusters, blocks, threads and pixel spans, so that it recomputes the forward's
     moments bit for bit, with x and dy both in shared memory: ``rpx`` pixels of each
     (all of the span where they fit), in ``chunks`` copies of ``cpx`` pixels of both."""

@@ -34,7 +34,7 @@ import torch
 import torch.nn as nn
 
 from .conv3x3_q8 import (ACT_SCALE_HEADROOM, conv3x3_int8, kmajor_weights, quantize_static,
-                         static_scale, true_div)
+                         refuse_grad, static_scale, true_div)
 
 SITES_ALL = ("conv3x3", "conv1x1", "dense", "lstm")
 LEAVES = ("act_scale", "w_q", "w_scale")
@@ -154,8 +154,12 @@ def conv3x3_q8_static(x: torch.Tensor, w: torch.Tensor, act_max: torch.Tensor,
     calibration. ``w_q``/``w_scale``: the calibration-time fold (else folded here);
     ``w_k``: the kernel's K-major copy of that ``w_q`` (``install`` makes it).
     Returns f32(conv) * w_scale in ``out_dtype``, plus ``bias`` added in ``out_dtype``
-    (the JAX package's order: quant.py:187, blocks.py:202, :210)."""
-    if w_q is None or w_scale is None:
+    (the JAX package's order: quant.py:187, blocks.py:202, :210). Forward-only: on a
+    CUDA tensor under grad mode it refuses inputs that need a gradient."""
+    fold = w_q is None or w_scale is None
+    if x.is_cuda:
+        refuse_grad("conv3x3_q8_static", x, bias, w if fold else None)
+    if fold:
         w_q, w_scale, w_k = *fold_quantize_weight(w, act_max), None
     return conv3x3_int8(x, w_q, w_scale, act_max, bias, strides, out_dtype, w_k=w_k)
 
@@ -174,8 +178,12 @@ def matmul_q8_static(x: torch.Tensor, w: torch.Tensor, act_max: torch.Tensor,
     x: (..., Cin); w: (Cin, Cout) f32; act_max: (Cin,). Returns f32 (caller adds bias).
 
     The int8 product is ``torch._int_mm`` for a CUDA tensor of a shape it takes, else a
-    matmul of the int8 values in float64; both sums are exact."""
-    if w_q is None or w_scale is None:
+    matmul of the int8 values in float64; both sums are exact. Forward-only: on a CUDA
+    tensor under grad mode it refuses inputs that need a gradient."""
+    fold = w_q is None or w_scale is None
+    if x.is_cuda:
+        refuse_grad("matmul_q8_static", x, w if fold else None)
+    if fold:
         w_q, w_scale = fold_quantize_weight(w, act_max)
     xq = quantize_static(x, act_max).reshape(-1, x.shape[-1])
     (m, k), n = xq.shape, w_q.shape[-1]

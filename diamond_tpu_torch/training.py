@@ -2,6 +2,11 @@
 gradient, the clipping, the AdamW update and the LR schedule on the device, with no
 host-device synchronisation.
 
+The denoiser step takes the autoregressive EDM loss (models/denoiser.py ``loss``) of a
+batch of uint8 segments over its ``T - n`` windows and backpropagates it through the
+U-Net on the hand-written backward kernels: K1's and K2's (the norms), K3's data and
+weight gradients (the 3x3 convs, the stride-2 Downsample included).
+
 The actor-critic step embeds the whole ``backup_every``-step imagination rollout
 (envs/world_model_env.py) in one differentiated step: the world model runs with no
 grad, the policy's trunk and heads with grad, and one backward pass takes the REINFORCE
@@ -9,7 +14,7 @@ grad, the policy's trunk and heads with grad, and one backward pass takes the RE
 hand-written backward kernels (K2's, K3's data and weight gradients).
 
 Not ported yet: gradient accumulation (``grad_acc_steps`` > 1, optax ``MultiSteps``),
-the model-free AC step and the denoiser and rew/end steps.
+the model-free AC step, the rew/end step and the two-stage (upsampler) denoiser.
 """
 
 from __future__ import annotations
@@ -20,10 +25,13 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from .config import ActorCriticLossConfig
+from .config import ActorCriticLossConfig, SigmaDistributionConfig
+from .data.episode import obs_to_float
+from .data.segment import DeviceBatch
 from .envs.world_model_env import ICPool, ImagState, ImaginationEngine, RolloutDraws
 from .models.actor_critic import ActorCritic
 from .models.agent import AdamWClip, configure_opt
+from .models.denoiser import Denoiser, DenoiserDraws
 
 
 @dataclass
@@ -70,6 +78,69 @@ def apply_update(tx: AdamWClip, state: TrainState) -> Tuple[TrainState, torch.Te
     grad_norm = tx.update(state.opt_state, state.step)
     state.step += 1
     return state, grad_norm
+
+
+# ---------------------------------------------------------------------------
+# Denoiser
+
+
+def _denoiser_loss(denoiser: Denoiser, sigma_cfg: SigmaDistributionConfig,
+                   downsample_factor: int) -> Callable:
+    if downsample_factor != 1:
+        raise ValueError("downsample_factor > 1 (the two-stage world model) is not ported yet")
+
+    def loss_fn(batch: DeviceBatch, draws: Optional[DenoiserDraws],
+                generator: Optional[torch.Generator]):
+        return denoiser.loss(obs_to_float(batch.obs), batch.act, batch.mask_padding, sigma_cfg,
+                             draws, generator)
+
+    return loss_fn
+
+
+def make_denoiser_train_step(denoiser: Denoiser, tx: AdamWClip,
+                             sigma_cfg: SigmaDistributionConfig,
+                             downsample_factor: int = 1) -> Callable:
+    """The denoiser step: ``step(state, batch, draws=None, generator=None) -> (state,
+    metrics)``. It takes ``denoiser.loss`` of the uint8 segments in ``batch`` (random
+    numbers from ``draws``, else from ``generator``), backpropagates it into
+    ``state.net`` (the denoiser's inner model) and updates it. The metrics
+    (``loss_denoising``, ``grad_norm_before_clip``) stay on the device.
+    ``downsample_factor`` > 1 (the two-stage world model) is refused."""
+    loss_fn = _denoiser_loss(denoiser, sigma_cfg, downsample_factor)
+
+    def step(state: TrainState, batch: DeviceBatch, draws: Optional[DenoiserDraws] = None,
+             generator: Optional[torch.Generator] = None
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        if state.net is not denoiser.inner_model:
+            raise ValueError("make_denoiser_train_step: state.net must be the denoiser's "
+                             "inner model")
+        state.opt_state.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            loss, metrics = loss_fn(batch, draws, generator)
+            loss.backward()
+        state, grad_norm = apply_update(tx, state)
+        metrics["grad_norm_before_clip"] = grad_norm
+        return state, metrics
+
+    return step
+
+
+def make_denoiser_eval_step(denoiser: Denoiser, sigma_cfg: SigmaDistributionConfig,
+                            downsample_factor: int = 1) -> Callable:
+    """``step(batch, draws=None, generator=None) -> metrics``: the training loss of a
+    batch under no grad (``loss_denoising``, on the device)."""
+    loss_fn = _denoiser_loss(denoiser, sigma_cfg, downsample_factor)
+
+    def step(batch: DeviceBatch, draws: Optional[DenoiserDraws] = None,
+             generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        with torch.no_grad():
+            return loss_fn(batch, draws, generator)[1]
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Actor-critic
 
 
 def ac_rollout_loss(engine: ImaginationEngine, actor_critic: ActorCritic,

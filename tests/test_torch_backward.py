@@ -112,8 +112,12 @@ def test_conv_function_on_cpu_matches_autograd_and_skips_unneeded_gradients():
     y = Conv3x3Fn.apply(x.detach(), k, None, 1)
     (gk,) = torch.autograd.grad(y, (k,), dy)
     torch.testing.assert_close(gk, ref[1], rtol=0, atol=1e-5)
-    with pytest.raises(ValueError, match="stride 2"):
-        Conv3x3Fn.apply(x, k, b, 2)
+    # stride 2 (the Downsample): the gradients through the zero interleave
+    dy2 = torch.randn(2, 4, 3, 8)
+    ref = torch.autograd.grad(conv3x3_plain(x, k, b, 2), (x, k, b), dy2)
+    got = torch.autograd.grad(Conv3x3Fn.apply(x, k, b, 2), (x, k, b), dy2)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=0, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -475,5 +475,114 @@ def test_card_places_the_16_block_backward_clusters():
     x = torch.zeros(32, 64, 64, 128, dtype=torch.bfloat16, device="cuda")
     p = bwd_plan(norm_plan(32, 64 * 64, 128, 4, 2))
     assert p.n == 16 and p.resident
-    assert kernels.lib().gn_bwd_max_clusters(p.c_ints) > 0
-    assert placed_bwd_plan(launch_plan(x, 4, "groupnorm_silu_bwd"), 0) is p
+    for film in (0, 1):  # K2's backward, then K1's
+        assert kernels.lib().gn_bwd_max_clusters(p.c_ints, film) > 0
+        assert placed_bwd_plan(launch_plan(x, 4, "groupnorm_silu_bwd"), 0, bool(film)) is p
+
+
+# K1's backward at the denoiser step's signatures (B, H, C) and ragged cases; the
+# stride-2 gradients at its Downsample convs (B, H, W, C -> C) and ragged cases (odd H
+# and W, Cout = 3 and 24, Cin = 3).
+K1_BWD_SHAPES = [(32, 64, 64), (32, 64, 128), (32, 32, 64), (32, 32, 128), (32, 16, 64),
+                 (32, 16, 128), (32, 8, 64), (32, 8, 128), (1, 9, 32), (3, 5, 96)]
+S2_SHAPES = [(32, 64, 64, 64, 64), (32, 32, 32, 64, 64), (32, 16, 16, 64, 64),
+             (2, 9, 9, 32, 24), (3, 7, 5, 3, 32), (2, 9, 6, 16, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k1_backward_and_stride2_gradients_match_plain_versions(dtype):
+    """K1's backward (dx, and the FiLM gradient from f32 and from bf16 rows) and K3's
+    stride-2 data and weight gradients against their plain versions: bf16 within 1/64 of
+    max(1, max |plain|); f32 with TF32 off, dx within 1e-4, the FiLM gradient (per-sample
+    sums over up to 4096 pixels) and the conv gradients within 1e-3. Both repeat bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diamond_tpu_torch.ops import (adagn_silu_bwd, adagn_silu_bwd_plain, conv3x3_dgrad,
+                                       conv3x3_dgrad_plain, conv3x3_wgrad, conv3x3_wgrad_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    f32 = dt == torch.float32
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for b, h, c in K1_BWD_SHAPES:
+        for ss_dt in (torch.float32, torch.bfloat16):
+            x, ss, _, _ = _norm_inputs(b, h, c, dt, g, ss_dt)
+            dy = torch.randn(x.shape, device="cuda", generator=g).to(dt)
+            for silu in (True, False):
+                got = adagn_silu_bwd(x, dy, ss, max(1, c // 32), silu)
+                ref = adagn_silu_bwd_plain(x, dy, ss, max(1, c // 32), silu)
+                assert got[1].shape == (b, 2 * c) and got[1].dtype == torch.float32
+                for k, (a, r) in enumerate(zip(got, ref)):
+                    _bwd_close(a, r, (1e-4 if k == 0 else 1e-3) if f32 else 1 / 64)
+            again = adagn_silu_bwd(x, dy, ss, max(1, c // 32))
+            first = adagn_silu_bwd(x, dy, ss, max(1, c // 32))
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, r) for a, r in zip(first, again))
+    tol = 1e-3 if f32 else 1 / 64
+    for b, h, w, cin, cout in S2_SHAPES:
+        x = torch.randn(b, h, w, cin, device="cuda", generator=g).to(dt)
+        dy = torch.randn(b, (h + 1) // 2, (w + 1) // 2, cout, device="cuda", generator=g).to(dt)
+        k = (torch.randn(3, 3, cin, cout, device="cuda", generator=g) / (9 * cin) ** .5).to(dt)
+        _bwd_close(conv3x3_wgrad(x, dy, 2), conv3x3_wgrad_plain(x, dy, 2), tol)
+        _bwd_close(conv3x3_dgrad(dy, k, 2, (h, w)), conv3x3_dgrad_plain(dy, k, 2, (h, w)), tol)
+        assert torch.equal(conv3x3_wgrad(x, dy, 2), conv3x3_wgrad(x, dy, 2))
+
+
+@pytest.mark.cuda
+def test_k1_and_stride2_autograd_pass_a_directional_gradcheck():
+    """AdaGroupNormSiLU and the stride-2 Conv3x3Fn on the card in f32 at a tiny shape:
+    autograd's directional derivative (K1's backward, K3's stride-2 gradients) equals
+    central differences of the forward kernels to 2 %, and their counters rise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diamond_tpu_torch.ops import adagn_silu_bwd, conv3x3_dgrad, conv3x3_wgrad
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x = (torch.randn(2, 6, 6, 64, device="cuda", generator=g) * 2 + 0.5).requires_grad_()
+    ss = (0.5 * torch.randn(2, 128, device="cuda", generator=g)).requires_grad_()
+    before = (adagn_silu_bwd.launches, conv3x3_dgrad.launches, conv3x3_wgrad.launches)
+    for silu in (True, False):
+        _directional_check(lambda a, s: adagn_silu(a, s, 2, silu), [x, ss])
+    xc = torch.randn(2, 7, 6, 16, device="cuda", generator=g).requires_grad_()
+    k = (torch.randn(3, 3, 16, 8, device="cuda", generator=g) / 12).requires_grad_()
+    bc = torch.randn(8, device="cuda", generator=g).requires_grad_()
+    _directional_check(lambda a, w, b: conv3x3(a, w, b, 2), [xc, k, bc])
+    after = (adagn_silu_bwd.launches, conv3x3_dgrad.launches, conv3x3_wgrad.launches)
+    assert all(a > b for a, b in zip(after, before))
+
+
+@pytest.mark.cuda
+def test_int8_wrappers_refuse_a_gradient_under_grad_mode():
+    """The forward-only int8 wrappers raise where an input of a CUDA call needs a
+    gradient under grad mode, instead of returning a result cut from the graph; under
+    no grad they run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    x, ss, sc, bi = _norm_inputs(2, 8, 64, torch.bfloat16, g)
+    am = torch.rand(64, device="cuda", generator=g) + 0.5
+    w = torch.randn(3, 3, 64, 32, device="cuda", generator=g) / 24
+    wd = torch.randn(64, 16, device="cuda", generator=g) / 8
+    mc, ic = torch.zeros(2, 64, device="cuda"), torch.ones(2, 64, device="cuda")
+    calls = {
+        "adagn_silu_q8": lambda x_, ss_: adagn_silu_q8(x_, ss_, 2, am),
+        "groupnorm_silu_q8": lambda x_, ss_: groupnorm_silu_q8(x_, sc, ss_[0, :64], 2, am),
+        "norm_affine_silu_q8": lambda x_, ss_: norm_affine_silu_q8(
+            x_, mc, ic, 1 + ss_[:, :64], ss_[:, 64:]),
+        "conv3x3_q8_static": lambda x_, ss_: quant.conv3x3_q8_static(
+            x_, w, am, bias=ss_[0, :32], out_dtype=torch.bfloat16),
+        "matmul_q8_static": lambda x_, ss_: quant.matmul_q8_static(x_, wd * ss_[0, 0], am),
+    }
+    for name, call in calls.items():
+        with torch.no_grad():
+            call(x, ss)
+        for needs in ("x", "ss"):
+            xa = x.detach().requires_grad_(needs == "x")
+            sa = ss.detach().requires_grad_(needs == "ss")
+            with pytest.raises(RuntimeError, match="no gradient"):
+                call(xa, sa)
+

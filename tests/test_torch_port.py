@@ -172,7 +172,8 @@ def test_reference_checkpoint_reaches_the_port():
 def test_port_imports_no_jax_and_no_yaml():
     modules = ["diamond_tpu_torch", "diamond_tpu_torch.config", "diamond_tpu_torch.kernels",
                "diamond_tpu_torch.ops", "diamond_tpu_torch.ops.quant", "diamond_tpu_torch.models",
-               "diamond_tpu_torch.data.episode", "diamond_tpu_torch.envs.world_model_env",
+               "diamond_tpu_torch.data.episode", "diamond_tpu_torch.data.segment",
+               "diamond_tpu_torch.envs.world_model_env",
                "diamond_tpu_torch.interop.jax_vars"]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"

@@ -62,6 +62,7 @@ def test_training_config_equals_trainer_yaml():
         assert asdict(sub.optimizer) == dict(cfg[name].optimizer), name
     assert asdict(port.actor_critic.actor_critic_loss) == \
         dict(cfg.actor_critic.actor_critic_loss)
+    assert asdict(port.denoiser.sigma_distribution) == dict(cfg.denoiser.sigma_distribution)
     spec = OptimizerSpec.from_cfg(port.actor_critic.optimizer, port.actor_critic.training)
     assert (spec.lr, spec.weight_decay, spec.eps, spec.max_grad_norm, spec.lr_warmup_steps) == \
         (1e-4, 0.0, 1e-8, 100.0, 100)
