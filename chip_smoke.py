@@ -38,14 +38,17 @@ result line):
      with warmup 0) on a deep copy of the agent's denoiser: counts set to 0, one warm-up
      and DEN_STEPS timed steps -> ms per step, training samples/s, launches per step of
      each kernel (held to the counts the module tree gives: K1 and its backward, K2 and
-     its backward, K3 with its data and weight gradients, stride 2 apart), peak memory;
-     one step profiled (device busy, the backward Functions' CPU time per call), one
-     under the sync debug mode; every parameter gets a finite gradient and moves, the
+     its backward, K3 with its data gradient (stride 1, and stride 2's own kernel) and
+     weight gradient, stride 2 and the bias gradient apart), peak memory; one step
+     profiled (device busy, the backward Functions' CPU time per call, kernel launch
+     calls at most those of a conv backward that still summed the bias and interleaved
+     and flipped at stride 2, less those launches, and no bias sum, zero interleave or
+     stride-2 flip under the conv's backward), one under the sync debug mode; every parameter gets a finite gradient and moves, the
      agent's denoiser stays untouched; the host cost of each backward piece per call;
   7. each kernel against its plain PyTorch version at every shape and dtype its paths
      sent it (the backward kernels: the AC step's and the denoiser step's), and in f32
-     (TF32 off), with device times, bounds and library yardsticks (the stride-2
-     gradients also the zero interleave's time); the backward kernels repeat bit for bit;
+     (TF32 off), with device times, bounds and library yardsticks (the weight gradient
+     also its bias gradient's error); the backward kernels repeat bit for bit;
      the share of the bound; for the 3x3 convs also the ratio to cuDNN's bf16 conv and
      the blocks of the launch plan, for the norms the cluster size and blocks of theirs;
      K4's per-sample epilogue at the int8 path's norm shapes;
@@ -64,6 +67,7 @@ import math
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 SEED = 0
@@ -92,9 +96,12 @@ KERNELS = {
     # the backward of K2's custom_vjp (the XLA VJP of _gn_silu_ref on the TPU)
     "groupnorm_silu_bwd": ("diamond_tpu_torch/kernels/csrc/gn_bwd.cu",
                            "diamond_tpu/ops/fused_norms.py:155", ("ac_step", "denoiser_step")),
-    # K3's gradients (XLA's VJP of the 3x3 conv on the TPU), stride 1 and 2
+    # K3's gradients (XLA's VJP of the 3x3 conv on the TPU): the data gradient at stride 1
+    # (K3 on dy) and at stride 2 (a kernel of its own), the weight and bias gradients
     "conv3x3_dgrad": ("diamond_tpu_torch/kernels/csrc/conv3x3.cu",
                       "diamond_tpu/ops/conv3x3.py:33", ("ac_step", "denoiser_step")),
+    "conv3x3_dgrad_s2": ("diamond_tpu_torch/kernels/csrc/conv3x3_dgrad_s2.cu",
+                         "diamond_tpu/ops/conv3x3.py:33", ("denoiser_step",)),
     "conv3x3_wgrad": ("diamond_tpu_torch/kernels/csrc/conv3x3_wgrad.cu",
                       "diamond_tpu/ops/conv3x3.py:33", ("ac_step", "denoiser_step")),
     # the backward of K1's custom_vjp (the XLA VJP of _adagn_silu_ref on the TPU)
@@ -103,7 +110,14 @@ KERNELS = {
 }
 BACKWARD = ("groupnorm_silu_bwd", "conv3x3_dgrad", "conv3x3_wgrad")
 # the backward kernels, whose sums run in a fixed order: two calls give the same bits
-REPEATS = ("groupnorm_silu_bwd", "conv3x3_wgrad", "adagn_silu_bwd")
+REPEATS = ("groupnorm_silu_bwd", "conv3x3_wgrad", "adagn_silu_bwd", "conv3x3_dgrad_s2")
+# the bias gradient, summed in the weight-gradient kernel: within DB_TOL of max(1, max
+# |dy's f32 sum|) (sums of up to 131k terms in another order)
+DB_TOL = 1e-3
+# The denoiser step's kernel launch calls (NVIDIA H100 80GB HBM3, 700 W) when its conv
+# backward still summed the bias with its own reduction and, at stride 2, interleaved dy
+# and flipped the kernel: the step must make at most this many less those launches
+DENOISER_LAUNCH_CALLS_BEFORE = 2882
 # max |kernel - plain| allowed, as a share of max(1, max |plain|): f32 sums in another
 # order (TF32 off on both sides); bf16 outputs are rounded once on both sides and may
 # differ by one bf16 ulp (1/128 relative), so 2 ulps are allowed. The int8 conv is exact
@@ -115,11 +129,11 @@ REPEATS = ("groupnorm_silu_bwd", "conv3x3_wgrad", "adagn_silu_bwd")
 TOL = {"float32": {"adagn_silu": 1e-4, "groupnorm_silu": 1e-4, "conv3x3": 1e-3,
                    "conv3x3_int8": 0.0, "groupnorm_silu_bwd": (1e-4, 1e-3, 1e-3),
                    "adagn_silu_bwd": (1e-4, 1e-3), "conv3x3_dgrad": 1e-3,
-                   "conv3x3_wgrad": 1e-3},
+                   "conv3x3_dgrad_s2": 1e-3, "conv3x3_wgrad": 1e-3},
        "bfloat16": {"adagn_silu": 1 / 64, "groupnorm_silu": 1 / 64, "conv3x3": 1 / 64,
                     "conv3x3_int8": 0.0, "groupnorm_silu_bwd": (1 / 64,) * 3,
                     "adagn_silu_bwd": (1 / 64,) * 2, "conv3x3_dgrad": 1 / 64,
-                    "conv3x3_wgrad": 1 / 64}}
+                    "conv3x3_dgrad_s2": 1 / 64, "conv3x3_wgrad": 1 / 64}}
 CODE_SHARE = 1e-3
 PER_RUN = {"bf16": "rollout", "int8": "rollout", "ac_step": "AC step",
            "denoiser_step": "denoiser step"}
@@ -186,8 +200,8 @@ def cudnn_bf16_conv(x, w, b, stride):
 def library_call(name, args):
     """The one PyTorch call that computes the kernel's function, where there is one, as a
     yardstick: cuDNN's conv for K3, its data and weight gradients for K3's (stride 1 and
-    2), F.group_norm for K2 without SiLU. None otherwise (the norms' backwards have their
-    own, ``gn_autograd_ms``)."""
+    2; the weight gradient's without the bias sum), F.group_norm for K2 without SiLU.
+    None otherwise (the norms' backwards have their own, ``gn_autograd_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -197,13 +211,13 @@ def library_call(name, args):
         x, scale, bias, g, _ = args
         return lambda: F.group_norm(x.permute(0, 3, 1, 2), g, scale.to(x.dtype),
                                     bias.to(x.dtype), eps=1e-5)
-    if name == "conv3x3_dgrad":
-        dy, w, stride, (h, wd) = args
+    if name in ("conv3x3_dgrad", "conv3x3_dgrad_s2"):
+        dy, w, stride, (h, wd) = (args[0], args[1], 2, args[2]) if name.endswith("s2") else args
         return lambda: torch.nn.grad.conv2d_input((dy.shape[0], w.shape[2], h, wd),
                                                   w.permute(3, 2, 0, 1), dy.permute(0, 3, 1, 2),
                                                   stride=stride, padding=1)
-    if name == "conv3x3_wgrad":
-        x, dy, stride = args
+    if name == "conv3x3_wgrad":  # the weight gradient alone: no single call adds the bias's
+        x, dy, stride, _ = args
         return lambda: torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2),
                                                    (dy.shape[-1], x.shape[-1], 3, 3),
                                                    dy.permute(0, 3, 1, 2), stride=stride,
@@ -267,15 +281,15 @@ def bound(name, args):
         ops = n * 28
         byts = 3 * n * es + args[2].numel() * args[2].element_size() + b * 2 * c * 4
         kind = "f32_simt"
-    elif name == "conv3x3_wgrad":  # x, dy (B, Ho, Wo, Cout), stride -> dW in x's dtype
-        dy = args[1]
+    elif name == "conv3x3_wgrad":  # x, dy (B, Ho, Wo, Cout), stride, bias -> dW, (db f32)
+        dy, with_bias = args[1], args[3]
         cout = dy.shape[-1]
         ops = 2 * (dy.numel() // cout) * 9 * c * cout  # the products stride 2 needs
-        byts = n * es + dy.numel() * es + 9 * c * cout * es
+        byts = n * es + dy.numel() * es + 9 * c * cout * es + 4 * cout * with_bias
         kind = "bf16_tensor"
-    elif name == "conv3x3_dgrad":  # dy, w (3, 3, Cin, Cout), stride, (H, W) -> dx (B, H, W, Cin)
-        w, (h, wd) = args[1], args[3]
-        ops = 2 * (n // c) * 9 * w.shape[2] * c
+    elif name in ("conv3x3_dgrad", "conv3x3_dgrad_s2"):  # dy, w (3, 3, Cin, Cout), [stride,]
+        w, (h, wd) = args[1], args[-1]                     # (H, W) -> dx (B, H, W, Cin)
+        ops = 2 * (n // c) * 9 * w.shape[2] * c  # each dy pixel meets each tap once
         byts = n * es + w.numel() * w.element_size() + b * h * wd * w.shape[2] * es
         kind = "bf16_tensor"
     elif name in ("adagn_silu", "groupnorm_silu"):  # small: the FiLM rows or the affine
@@ -327,11 +341,17 @@ def make_inputs(name, sig, dtype, gen):
 
     dev = "cuda"
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
-    if name == "conv3x3_wgrad":  # x's shape, Cout, stride
-        shape, cout, stride, _ = sig
+    if name == "conv3x3_wgrad":  # x's shape, Cout, stride, with the bias gradient
+        shape, cout, stride, with_bias, _ = sig
         b, h, w, _ = shape
         return (rnd(*shape).to(dtype),
-                rnd(b, (h - 1) // stride + 1, (w - 1) // stride + 1, cout).to(dtype), stride)
+                rnd(b, (h - 1) // stride + 1, (w - 1) // stride + 1, cout).to(dtype), stride,
+                with_bias)
+    if name == "conv3x3_dgrad_s2":  # dy's shape, the conv's Cin, its input's H and W
+        shape, cin, hw, _ = sig
+        w = ((torch.rand((3, 3, cin, shape[-1]), generator=gen, device=dev) * 2 - 1)
+             / (9 * cin) ** 0.5).to(dtype)
+        return (rnd(*shape).to(dtype), w, hw)
     if name == "conv3x3_dgrad":  # dy's shape, the conv's Cin, stride, its input's H and W
         shape, cin, stride, hw, _ = sig
         w = ((torch.rand((3, 3, cin, shape[-1]), generator=gen, device=dev) * 2 - 1)
@@ -421,10 +441,11 @@ def conv_blocks(name, args) -> int:
     x = args[0]
     b, h, w, cin = x.shape
     if name == "conv3x3_wgrad":
-        return conv_plan.wgrad_plan(b, h, w, cin, args[1].shape[-1]).grid
-    if name == "conv3x3_dgrad":  # K3 on dy, or at stride 2 on dyz (the input's size)
-        h, w = args[3]
+        return conv_plan.wgrad_plan(b, h, w, cin, args[1].shape[-1], args[2]).grid
+    if name == "conv3x3_dgrad":  # K3 on dy with the flipped kernel
         return conv_plan.k3_plan(b, h, w, cin, args[1].shape[2], 1).grid
+    if name == "conv3x3_dgrad_s2":
+        return conv_plan.dgrad_s2_plan(b, *args[2], args[1].shape[2], cin).grid
     if name == "conv3x3_int8":
         return conv_plan.k5_plan(b, h, w, cin, args[1].shape[-1], args[5],
                                  x.dtype == torch.int8).grid
@@ -455,6 +476,14 @@ def compare_one(name, kernel, plain, args, dt_name):
                   f"{name} {dt_name} {part}: max abs err {e} > {tol} * {scale}")
             err = max(err, e)
         return err
+    if name == "conv3x3_wgrad" and args[3]:  # (dW, db): db against dy's f32 sum
+        y, db = y
+        ref, ref_db = ref
+        scale = max(1.0, ref_db.abs().max().item())
+        e_db = (db - ref_db).abs().max().item()
+        check(bool(torch.isfinite(db).all()) and e_db <= DB_TOL * scale,
+              f"{name} {dt_name} db: max abs err {e_db} > {DB_TOL} * {scale}")
+        compare_one.db_err = e_db
     if name in ("adagn_silu_q8", "groupnorm_silu_q8"):
         # the static epilogue equals quantize(K1/K2 kernel output) code for code
         base = ops.adagn_silu if name == "adagn_silu_q8" else ops.groupnorm_silu
@@ -467,6 +496,9 @@ def compare_one(name, kernel, plain, args, dt_name):
     check(e <= TOL[dt_name][name] * scale,
           f"{name} {dt_name}: max abs err {e} > {TOL[dt_name][name]} * {scale}")
     return e
+
+
+compare_one.db_err = None  # the bias gradient's error of the last weight-gradient call
 
 
 def _zero_totals() -> dict:
@@ -485,7 +517,6 @@ def compare_kernels(shapes, launches, runs):
     the JSON rows and the per-signature details."""
     import torch
     from diamond_tpu_torch import ops
-    from diamond_tpu_torch.ops.conv3x3 import zero_interleave
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -504,12 +535,15 @@ def compare_kernels(shapes, launches, runs):
             for dt_name in ("bfloat16", "float32"):
                 as_run = run_dtype == f"torch.{dt_name}"
                 args = make_inputs(name, sig, getattr(torch, dt_name), gen)
+                compare_one.db_err = None
                 e = compare_one(name, kernel, plain, args, dt_name)
                 err[dt_name] = max(err[dt_name], e)
                 t_k = cuda_time_ms(lambda: kernel(*args))
                 t_p = cuda_time_ms(lambda: plain(*plain_args(name, args)))
                 row = dict(kernel=name, signature=str(sig), dtype=dt_name, calls_per_run=per_run,
                            max_abs_err=e, ms=t_k, plain_ms=t_p)
+                if compare_one.db_err is not None:
+                    row["db_err"] = compare_one.db_err
                 if as_run:  # the path's dtype: weight by its call count
                     t_b, t_o = bound(name, plain_args(name, args))
                     row.update(bytes_ms=t_b, ops_ms=t_o, bound_ms=max(t_b, t_o))
@@ -523,12 +557,6 @@ def compare_kernels(shapes, launches, runs):
                         wb = wq.to(torch.bfloat16)
                         row["cudnn_bf16_ms"] = cuda_time_ms(
                             lambda: cudnn_bf16_conv(xb, wb, bias, stride))
-                    if name == "conv3x3_dgrad" and args[2] == 2:  # the zero fill + strided copy
-                        row["interleave_ms"] = cuda_time_ms(
-                            lambda: zero_interleave(args[0], args[3], 2))
-                    if name == "conv3x3_wgrad" and args[2] == 2:
-                        row["interleave_ms"] = cuda_time_ms(
-                            lambda: zero_interleave(args[1], tuple(args[0].shape[1:3]), 2))
                     row["bound_share"] = row["bound_ms"] / t_k
                     if name.startswith("conv"):  # ratio to cuDNN, blocks
                         row["vs_library"] = t_k / row.get("library_ms", row.get("cudnn_bf16_ms"))
@@ -567,7 +595,8 @@ def compare_kernels(shapes, launches, runs):
                 log(f"[compare] {name} {sig} {dt_name}: err {e:.3g} kernel {t_k:.4f} ms plain "
                     f"{t_p:.4f} ms" + "".join(f" {k} {row[k]:.4f}" for k in (
                         "bound_ms", "library_ms", "cudnn_bf16_ms", "per_sample_ms",
-                        "interleave_ms", "vs_library", "bound_share") if k in row)
+                        "vs_library", "bound_share") if k in row)
+                    + (f" db_err {row['db_err']:.3g}" if "db_err" in row else "")
                     + (f" cluster {row['cluster']}" if "cluster" in row else "")
                     + (f" blocks {row['blocks']}" if "blocks" in row else ""))
         by_path = {p: dict(launches=launches[p][name], ms=t["ms"], plain_ms=t["plain_ms"],
@@ -698,6 +727,7 @@ def profile_run(fn, label, what) -> dict:
     functions = {e.key: dict(calls=e.count, cpu_us=e.cpu_time_total / e.count)
                  for e in events if e.count and "Backward" in e.key
                  and any(f in e.key for f in ("Conv3x3Fn", "GroupNormSiLU"))}
+    conv_bwd_ops = ops_under(prof.events(), "Conv3x3FnBackward")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / f"chip_smoke_profile_{label}.txt").write_text(
         events.table(sort_by="self_device_time_total", row_limit=40))
@@ -711,8 +741,48 @@ def profile_run(fn, label, what) -> dict:
     for k, v in functions.items():
         log(f"[profile]   {k}: {v['calls']} calls, {v['cpu_us']:.1f} µs of CPU per call")
     return dict(busy_ms=busy_ms, wall_ms=wall_ms, launches=launches, functions=functions,
-                annotation_spans_ms=spans,
+                annotation_spans_ms=spans, conv_bwd_ops=dict(conv_bwd_ops),
                 top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in kernels[:12]])
+
+
+def log_unprofiled_idle(profile: dict, step_ms: float, what: str) -> None:
+    """The idle share of a train step: the profiled step's device busy time against the
+    unprofiled step's mean host-clock time (the profiler slows the host, not the kernels)."""
+    log(f"[profile]   {what}: idle {100 * (1 - profile['busy_ms'] / step_ms):.1f} % against "
+        f"the unprofiled {step_ms:.1f} ms per step")
+
+
+def ops_under(events, name: str) -> Counter:
+    """The operators run inside every profiled event named ``name`` (e.g. an autograd
+    Function's backward node), counted by name over all their descendants."""
+    seen, out = set(), Counter()
+
+    def walk(e):
+        for c in e.cpu_children:
+            if id(c) not in seen:
+                seen.add(id(c))
+                out[c.name] += 1
+                walk(c)
+
+    for e in events:
+        if e.name == name and id(e) not in seen:
+            seen.add(id(e))
+            walk(e)
+    return out
+
+
+def check_conv_backward(profile: dict, dgrad_s1: float, what: str) -> None:
+    """Under the conv's backward on the CUDA path: no bias reduction (the weight-gradient
+    kernel sums dy), no zero interleave (stride 2 has kernels of its own) and no flip but
+    the stride-1 data gradient's, one per call."""
+    ops = profile["conv_bwd_ops"]
+    check(ops.get("aten::flip", 0) == dgrad_s1,
+          f"{what}: {ops.get('aten::flip', 0)} kernel flips under the conv backward, "
+          f"{dgrad_s1} stride-1 data gradients")
+    for op in ("aten::sum", "aten::new_zeros", "aten::zeros"):
+        check(ops.get(op, 0) == 0, f"{what}: {op} ran under the conv backward")
+    log(f"[profile]   under Conv3x3FnBackward: {ops.get('aten::flip', 0)} flips (one per "
+        f"stride-1 data gradient), no bias sum, no zero interleave")
 
 
 def drive(engine, st, pool, gen, label, smi):
@@ -915,6 +985,9 @@ def ac_step_phase(engine, agent, st, pool, gen, smi):
         moved = max((p - ac_before[n]).abs().max().item() for n, p in ac.net.named_parameters())
 
     profile = profile_run(lambda: step(state, st, pool, generator=gen), "ac_step", "AC step")
+    log_unprofiled_idle(profile, secs * 1e3, "AC step")
+    check(launches["conv3x3_dgrad_s2"] == 0, "AC step: a stride-2 data gradient ran")
+    check_conv_backward(profile, launches["conv3x3_dgrad"] / (1 + AC_STEPS), "AC step")
     syncs = sync_points(lambda: step(state, st, pool, generator=gen))
     log(f"[sync] AC step: {sum(syncs.values())} host-device synchronisations {syncs}")
     return st, pool, shapes, dict(step_ms=secs * 1e3, fps=fps, peak_memory_bytes=peak,
@@ -1010,8 +1083,9 @@ def ac_step_reference(agent, st, pool, wm_cfg):
 def expected_denoiser_launches(inner, windows: int) -> dict:
     """The kernel launches one denoiser step makes, from the module tree: per window one
     forward (K1 per fused AdaGN, K2 per GroupNorm, K3 per 3x3 conv) and one backward (the
-    same count of K1's and K2's backwards and of weight gradients, and a data gradient
-    for every conv but ``conv_in``, whose input needs none)."""
+    same count of K1's and K2's backwards and of weight gradients, each with the bias
+    gradient, and a data gradient for every conv but ``conv_in``, whose input needs none:
+    K3 at stride 1, the stride-2 kernel at the Downsample convs)."""
     from diamond_tpu_torch.models.blocks import AdaGroupNorm, Conv3x3, GroupNorm
 
     mods = list(inner.modules())
@@ -1021,9 +1095,21 @@ def expected_denoiser_launches(inner, windows: int) -> dict:
     s2 = sum(isinstance(m, Conv3x3) and m.strides == 2 for m in mods)
     w = windows
     return {"adagn_silu": w * k1, "adagn_silu_bwd": w * k1, "groupnorm_silu": w * k2,
-            "groupnorm_silu_bwd": w * k2, "conv3x3": w * k3, "conv3x3_dgrad": w * (k3 - 1),
-            "conv3x3_wgrad": w * k3, "conv3x3_dgrad at stride 2": w * s2,
-            "conv3x3_wgrad at stride 2": w * s2}
+            "groupnorm_silu_bwd": w * k2, "conv3x3": w * k3,
+            "conv3x3_dgrad": w * (k3 - 1 - s2), "conv3x3_dgrad_s2": w * s2,
+            "conv3x3_wgrad": w * k3, "conv3x3_wgrad at stride 2": w * s2,
+            "conv3x3_wgrad with the bias gradient": w * k3}
+
+
+def removed_launch_calls(inner, windows: int) -> int:
+    """The kernel launches per denoiser step that the conv backward no longer makes: a
+    bias reduction per conv, and per stride-2 conv the zero interleave's fill and copy
+    for each of its two gradients and the kernel flip's two."""
+    from diamond_tpu_torch.models.blocks import Conv3x3
+
+    convs = [m for m in inner.modules() if isinstance(m, Conv3x3)]
+    s2 = sum(m.strides == 2 for m in convs)
+    return windows * (len(convs) + 2 * 2 * s2 + 2 * s2)
 
 
 def denoiser_batch(cfg, b: int, gen, device):
@@ -1049,7 +1135,7 @@ def host_costs() -> dict:
     goes. A figure, not a check."""
     import torch
     from diamond_tpu_torch import ops
-    from diamond_tpu_torch.ops.conv3x3 import flip_kernel, zero_interleave
+    from diamond_tpu_torch.ops.conv3x3 import flip_kernel
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
     rnd = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)  # noqa: E731
@@ -1058,11 +1144,12 @@ def host_costs() -> dict:
     sc, bi = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
     pieces = {
         "flip_kernel": lambda: flip_kernel(w),
-        "zero_interleave (stride 2)": lambda: zero_interleave(dy2, (16, 16), 2),
         "conv3x3_dgrad": lambda: ops.conv3x3_dgrad(dy, w),
-        "conv3x3_dgrad at stride 2": lambda: ops.conv3x3_dgrad(dy2, w, 2, (16, 16)),
+        "conv3x3_dgrad_s2": lambda: ops.conv3x3_dgrad_s2(dy2, w, (16, 16)),
         "conv3x3_wgrad": lambda: ops.conv3x3_wgrad(x, dy),
-        "bias gradient (f32 sum of dy)": lambda: dy.sum(dim=(0, 1, 2), dtype=torch.float32),
+        "conv3x3_wgrad with the bias gradient": lambda: ops.conv3x3_wgrad(x, dy, 1, True),
+        "conv3x3_wgrad at stride 2 with the bias gradient":
+            lambda: ops.conv3x3_wgrad(x, dy2, 2, True),
         "groupnorm_silu_bwd": lambda: ops.groupnorm_silu_bwd(x, dy, sc, bi, 2),
         "adagn_silu_bwd": lambda: ops.adagn_silu_bwd(x, dy, ss, 2),
     }
@@ -1131,9 +1218,10 @@ def denoiser_step_phase(agent, smi):
     launches = {name: getattr(ops, name).launches for name in KERNELS}
     shapes = {name: dict(getattr(ops, name).shapes) for name in KERNELS}
     per_step = {name: launches[name] / steps for name in launches}
-    for name in ("conv3x3_dgrad", "conv3x3_wgrad"):
-        per_step[f"{name} at stride 2"] = sum(
-            c for sig, c in shapes[name].items() if sig[2] == 2) / steps
+    wg = shapes["conv3x3_wgrad"]
+    per_step["conv3x3_wgrad at stride 2"] = sum(c for sig, c in wg.items() if sig[2] == 2) / steps
+    per_step["conv3x3_wgrad with the bias gradient"] = sum(
+        c for sig, c in wg.items() if sig[3]) / steps
     expected = expected_denoiser_launches(net, windows)
     for k, v in expected.items():
         check(per_step[k] == v, f"denoiser step: {per_step[k]} {k} launches per step, the "
@@ -1152,6 +1240,14 @@ def denoiser_step_phase(agent, smi):
 
     profile = profile_run(lambda: step(state, batch, generator=dgen), "denoiser_step",
                           "denoiser step")
+    log_unprofiled_idle(profile, secs * 1e3, "denoiser step")
+    check_conv_backward(profile, per_step["conv3x3_dgrad"], "denoiser step")
+    most = DENOISER_LAUNCH_CALLS_BEFORE - removed_launch_calls(net, windows)
+    check(profile["launches"] <= most, f"denoiser step: {profile['launches']} kernel launch "
+          f"calls, more than {most}: {DENOISER_LAUNCH_CALLS_BEFORE} less the launches removed")
+    log(f"[profile]   {profile['launches']} kernel launch calls per denoiser step: at most "
+        f"{most} ({DENOISER_LAUNCH_CALLS_BEFORE} less the bias sums, interleaves and "
+        f"stride-2 flips)")
     syncs = sync_points(lambda: step(state, batch, generator=dgen))
     log(f"[sync] denoiser step: {sum(syncs.values())} host-device synchronisations {syncs}")
     # every parameter leaf receives a finite gradient (checked outside the counted run)

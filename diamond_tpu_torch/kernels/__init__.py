@@ -49,10 +49,14 @@ _SIGNATURES = {
     "groupnorm_silu_bwd": (_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P),
     # x, dy, scale_shift, aff_dtype, dx, dss, silu, plan (norm_plan.bwd_plan), stream
     "adagn_silu_bwd": (_P, _P, _P, _I, _P, _P, _I, _P, _P),
-    # x, dy, part, dw, plan (conv_plan.wgrad_plan), stream
-    "conv3x3_wgrad_bf16": (_P, _P, _P, _P, _P, _P),
-    # x, dy, part, dw, B, H, W, Cin, Cout, splits, pixels per split, stream
-    "conv3x3_wgrad_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _P),
+    # x, dy, part, pdb, dw, db, plan (conv_plan.wgrad_plan), stream
+    "conv3x3_wgrad_bf16": (_P, _P, _P, _P, _P, _P, _P, _P),
+    # x, dy, part, pdb, dw, db, B, H, W, Cin, Cout, stride, splits, pixels per split, stream
+    "conv3x3_wgrad_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _P),
+    # dy, w, dx, plan (conv_plan.dgrad_s2_plan), stream
+    "conv3x3_dgrad_s2_bf16": (_P, _P, _P, _P, _P),
+    # dy, w, dx, B, H, W, Cin, Cout, stream
+    "conv3x3_dgrad_s2_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # plan: the clusters of the norm kernels the card can run at once (K1/K2, K4 static,
     # the backward: K2's, or K1's where the int is 1)
     "gn_max_clusters": (_P,),

@@ -130,6 +130,25 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* a, uint32_t addr) {
                : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
                : "r"(addr));
 }
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* a, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+// 8 bf16 at src into 16 bytes of shared memory at dst: one cp.async where the source is
+// 16-byte aligned (async), else element by element; n of them valid, zeros after.
+__device__ __forceinline__ void copy8(unsigned char* dst, const __nv_bfloat16* src,
+                                      const __nv_bfloat16* any, int n, bool async) {
+  if (async) {
+    cp_async16(smem_u32(dst), n > 0 ? src : any, n > 0);
+  } else {
+    alignas(16) __nv_bfloat16 v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = j < n ? src[j] : __float2bfloat16_rn(0.f);
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+  }
+}
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -154,53 +173,55 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
 
 // One wgmma: D (64 x N, this thread's N/2 accumulators) += A (64 x one K step, this
 // warp's 16 rows in four registers) * B (one K step x N, from shared memory). float
-// accumulators take bf16 m64nNk16, int accumulators s8 m64nNk32.
-template <typename Acc, int N>
+// accumulators take bf16 m64nNk16, with B N-major (TB = 1: core matrices of 8 K rows of
+// 8 N values, read transposed) or K-major (TB = 0: 8 N rows of 8 K values); int
+// accumulators s8 m64nNk32, B K-major.
+template <typename Acc, int N, int TB = 1>
 struct Wgmma;
-template <>
-struct Wgmma<float, 8> {
+template <int TB>
+struct Wgmma<float, 8, TB> {
   static __device__ __forceinline__ void run(float* d, const uint32_t* a,
                                              uint64_t desc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+        "{%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TB));
   }
 };
-template <>
-struct Wgmma<float, 16> {
+template <int TB>
+struct Wgmma<float, 16, TB> {
   static __device__ __forceinline__ void run(float* d, const uint32_t* a,
                                              uint64_t desc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TB));
   }
 };
-template <>
-struct Wgmma<float, 32> {
+template <int TB>
+struct Wgmma<float, 32, TB> {
   static __device__ __forceinline__ void run(float* d, const uint32_t* a,
                                              uint64_t desc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TB));
   }
 };
-template <>
-struct Wgmma<float, 64> {
+template <int TB>
+struct Wgmma<float, 64, TB> {
   static __device__ __forceinline__ void run(float* d, const uint32_t* a,
                                              uint64_t desc) {
     asm volatile(
@@ -208,14 +229,14 @@ struct Wgmma<float, 64> {
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TB));
   }
 };
 template <>

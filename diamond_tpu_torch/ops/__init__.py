@@ -1,8 +1,8 @@
 """The port's kernel-backed ops: a CUDA kernel for CUDA tensors, its plain PyTorch
 version for CPU tensors (the counterparts of diamond_tpu/ops)."""
 
-from .conv3x3 import (conv3x3, conv3x3_dgrad, conv3x3_dgrad_plain, conv3x3_plain, conv3x3_wgrad,
-                      conv3x3_wgrad_plain)
+from .conv3x3 import (conv3x3, conv3x3_dgrad, conv3x3_dgrad_plain, conv3x3_dgrad_s2,
+                      conv3x3_dgrad_s2_plain, conv3x3_plain, conv3x3_wgrad, conv3x3_wgrad_plain)
 from .conv3x3_q8 import conv3x3_int8, conv3x3_int8_plain, kmajor_weights, quantize_static
 from .fused_norms import (adagn_silu, adagn_silu_bwd, adagn_silu_bwd_plain, adagn_silu_plain,
                           groupnorm_silu, groupnorm_silu_bwd, groupnorm_silu_bwd_plain,

@@ -11,19 +11,21 @@ bf16 runs the halo-tile wgmma kernel (``kernels/csrc/conv_halo.cuh``) on the lau
 of ``conv_plan.k3_plan`` for every shape, Cin = 3, 6 and 12 included (zero-padded to 16
 channels in the kernel); f32 (the parity runs) runs the CUDA-core kernel.
 
-``conv3x3`` is differentiable (``Conv3x3Fn``): the data gradient is K3 itself on dy
-with the flipped, transposed kernel (``conv3x3_dgrad``), the weight gradient the
-hand-written kernel of ``kernels/csrc/conv3x3_wgrad.cu`` (``conv3x3_wgrad``), each
-beside its plain version. The JAX package's convs get these from XLA's VJP of
-``lax.conv``. At stride 2 both run on the stride-1 kernels, fed the zero-interleaved
-cotangent dyz (``zero_interleave``: x's spatial size, dyz[2i, 2j] = dy[i, j], zeros
-elsewhere): the stride-2 SAME conv is the stride-1 one read at even positions, so its
-gradients are the stride-1 conv's for dyz, exactly, for odd H and W too. dyz is one
-zero fill and one strided copy; the kernels then do 4x the MACs the stride-2 gradient
-needs.
+``conv3x3`` is differentiable (``Conv3x3Fn``): at stride 1 the data gradient is K3 itself
+on dy with the flipped, transposed kernel (``conv3x3_dgrad``); at stride 2 it is a kernel
+of its own (``conv3x3_dgrad_s2``, kernels/csrc/conv3x3_dgrad_s2.cu), which computes dx's
+four parity classes from dy and w as they are. The weight gradient, at both strides and
+with the bias gradient where the conv has a bias, is the hand-written kernel of
+``kernels/csrc/conv3x3_wgrad.cu`` (``conv3x3_wgrad``). Each has its plain version beside
+it. The JAX package's convs get these from XLA's VJP of ``lax.conv``. The plain versions
+run stride 2 through the zero-interleaved cotangent dyz (``zero_interleave``: x's spatial
+size, dyz[2i, 2j] = dy[i, j], zeros elsewhere): the stride-2 SAME conv is the stride-1
+one read at even positions, so its gradients are the stride-1 conv's for dyz, exactly,
+for odd H and W too.
 
 ``<wrapper>.launches`` counts kernel launches and ``<wrapper>.shapes`` the call
-signatures, for ``conv3x3``, ``conv3x3_dgrad`` and ``conv3x3_wgrad`` apart.
+signatures, for ``conv3x3``, ``conv3x3_dgrad``, ``conv3x3_dgrad_s2`` and ``conv3x3_wgrad``
+apart.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from .conv_plan import k3_plan, wgrad_f32_split, wgrad_plan
+from .conv_plan import dgrad_s2_plan, k3_plan, wgrad_f32_split, wgrad_plan
 
 
 def conv3x3_plain(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None,
@@ -94,11 +96,11 @@ def _conv3x3_fwd(x, kernel, bias, stride):
 
 
 class Conv3x3Fn(torch.autograd.Function):
-    """K3 with its gradient (stride 1 or 2): the forward is K3; the data gradient is K3
-    on dy (at stride 2 on dyz) with the flipped, transposed kernel (``conv3x3_dgrad``),
-    skipped where x needs no gradient; the weight gradient is the K3 weight-gradient
-    kernel (``conv3x3_wgrad``); the bias gradient an f32 sum of dy. On CPU tensors each
-    is its plain version."""
+    """K3 with its gradient (stride 1 or 2): the forward is K3; the data gradient is
+    ``conv3x3_dgrad`` (stride 1: K3 on dy with the flipped, transposed kernel; stride 2:
+    the parity-class kernel), skipped where x needs no gradient; the weight gradient and,
+    where the conv has a bias that needs one, the bias gradient are one
+    ``conv3x3_wgrad`` call. On CPU tensors each is its plain version."""
 
     @staticmethod
     def forward(ctx, x, kernel, bias, stride):
@@ -112,9 +114,14 @@ class Conv3x3Fn(torch.autograd.Function):
         dy, s = dy.contiguous(), ctx.stride
         hw = tuple(x.shape[1:3])
         dx = conv3x3_dgrad(dy, kernel, s, hw) if ctx.needs_input_grad[0] else None
-        dw = conv3x3_wgrad(x, dy, s) if ctx.needs_input_grad[1] else None
-        db = (dy.sum(dim=(0, 1, 2), dtype=torch.float32)
-              if ctx.has_bias and ctx.needs_input_grad[2] else None)
+        with_db = ctx.has_bias and ctx.needs_input_grad[2]
+        dw = db = None
+        if ctx.needs_input_grad[1] or with_db:
+            dw = conv3x3_wgrad(x, dy, s, with_bias=with_db)
+            if with_db:
+                dw, db = dw
+            if not ctx.needs_input_grad[1]:
+                dw = None
         return dx, dw, db, None
 
 
@@ -167,74 +174,143 @@ def conv3x3_dgrad_plain(dy: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
 def conv3x3_dgrad(dy: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
                   hw=None) -> torch.Tensor:
     """The data gradient of the conv with ``kernel`` (3, 3, Cin, Cout) at ``stride`` on an
-    input of spatial size hw (dy's at stride 1): K3 launched on dy (B, Ho, Wo, Cout), at
-    stride 2 on dyz, with the flipped, transposed kernel (3, 3, Cout, Cin) in dy's dtype.
-    Counted in ``conv3x3_dgrad.launches``, not in K3's forward count; its signature is
-    (dy's shape, Cin, stride, hw, dtype)."""
+    input of spatial size hw (dy's at stride 1): at stride 1 K3 launched on dy (B, Ho,
+    Wo, Cout) with the flipped, transposed kernel (3, 3, Cout, Cin) in dy's dtype, counted
+    in ``conv3x3_dgrad.launches`` (not in K3's forward count), its signature (dy's shape,
+    Cin, stride, hw, dtype); at stride 2 ``conv3x3_dgrad_s2``."""
     if dy.device.type == "cpu":
         return conv3x3_dgrad_plain(dy, kernel, stride, hw)
     hw = tuple(hw or dy.shape[1:3])
-    dyz = zero_interleave(dy, hw, stride)
-    y, _ = _conv3x3_launch(dyz, flip_kernel(kernel.to(dy.dtype)), None, 1, "conv3x3_dgrad")
+    if stride == 2:
+        return conv3x3_dgrad_s2(dy, kernel, hw)
+    zero_interleave(dy, hw, stride)  # checks the stride and dy's shape
+    y, _ = _conv3x3_launch(dy, flip_kernel(kernel.to(dy.dtype)), None, 1, "conv3x3_dgrad")
     conv3x3_dgrad.launches += 1
     conv3x3_dgrad.shapes[(tuple(dy.shape), kernel.shape[2], stride, hw, str(dy.dtype))] += 1
     return y
 
 
-def conv3x3_wgrad_plain(x: torch.Tensor, dy: torch.Tensor, stride: int = 1) -> torch.Tensor:
+def conv3x3_dgrad_s2_plain(dy: torch.Tensor, kernel: torch.Tensor, hw) -> torch.Tensor:
+    """dx of the stride-2 conv with ``kernel`` on an input of spatial size hw: the plain
+    data gradient at stride 2 (the stride-1 conv of dyz with the flipped kernel)."""
+    return conv3x3_dgrad_plain(dy, kernel, 2, hw)
+
+
+def conv3x3_dgrad_s2(dy: torch.Tensor, kernel: torch.Tensor, hw) -> torch.Tensor:
+    """The data gradient of the stride-2 conv with ``kernel`` (3, 3, Cin, Cout) on an
+    input of spatial size hw = (H, W), for the cotangent dy (B, (H-1)//2+1, (W-1)//2+1,
+    Cout): dx (B, H, W, Cin) in dy's dtype, one launch of
+    kernels/csrc/conv3x3_dgrad_s2.cu (bf16: the four parity classes on wgmma, w read as
+    it is, on the plan of ``conv_plan.dgrad_s2_plan``; f32: CUDA cores). Its signature is
+    (dy's shape, Cin, hw, dtype)."""
+    if dy.device.type == "cpu":
+        return conv3x3_dgrad_s2_plain(dy, kernel, hw)
+    if dy.device.type != "cuda":
+        raise ValueError(f"conv3x3_dgrad_s2: dy must be a CPU or CUDA tensor, got {dy.device}")
+    h, w = hw
+    b, ho, wo, cout = dy.shape
+    if (ho, wo) != ((h - 1) // 2 + 1, (w - 1) // 2 + 1) or not dy.is_contiguous():
+        raise ValueError(f"conv3x3_dgrad_s2: dy {tuple(dy.shape)} is not the contiguous "
+                         f"stride-2 output of a {h}x{w} input")
+    if (kernel.dim() != 4 or kernel.shape[:2] != (3, 3) or kernel.shape[3] != cout
+            or kernel.device != dy.device):
+        raise ValueError(f"conv3x3_dgrad_s2: kernel must be (3, 3, Cin, {cout}) on "
+                         f"{dy.device}, got {tuple(kernel.shape)} on {kernel.device}")
+    code = kernels.dtype_code(dy.dtype)
+    kernel = kernel.to(dy.dtype).contiguous()
+    cin = kernel.shape[2]
+    dx = torch.empty((b, h, w, cin), device=dy.device, dtype=dy.dtype)
+    stream = torch.cuda.current_stream(dy.device).cuda_stream
+    if code == 1:
+        if dy.data_ptr() % 16 or kernel.data_ptr() % 16:
+            raise ValueError("conv3x3_dgrad_s2: bf16 operands must be 16-byte aligned")
+        code = kernels.lib().conv3x3_dgrad_s2_bf16(
+            dy.data_ptr(), kernel.data_ptr(), dx.data_ptr(),
+            dgrad_s2_plan(b, h, w, cin, cout).c_ints, stream)
+    else:
+        code = kernels.lib().conv3x3_dgrad_s2_f32(dy.data_ptr(), kernel.data_ptr(),
+                                                  dx.data_ptr(), b, h, w, cin, cout, stream)
+    kernels.check(code, "conv3x3_dgrad_s2")
+    conv3x3_dgrad_s2.launches += 1
+    conv3x3_dgrad_s2.shapes[(tuple(dy.shape), cin, (h, w), str(dy.dtype))] += 1
+    return dx
+
+
+def conv3x3_wgrad_plain(x: torch.Tensor, dy: torch.Tensor, stride: int = 1,
+                        with_bias: bool = False):
     """dW (3, 3, Cin, Cout) of the conv at ``stride`` on x for the cotangent dy, f32 sums
-    rounded once to x's dtype: the stride-1 weight gradient for dyz."""
+    rounded once to x's dtype: the stride-1 weight gradient for dyz; with ``with_bias``
+    also db (Cout,) = dy's f32 sum, as (dW, db)."""
     dyz = zero_interleave(dy, tuple(x.shape[1:3]), stride)
     dw = torch.nn.grad.conv2d_weight(x.float().permute(0, 3, 1, 2),
                                      (dy.shape[-1], x.shape[-1], 3, 3),
                                      dyz.float().permute(0, 3, 1, 2), padding=1)
-    return dw.permute(2, 3, 1, 0).to(x.dtype).contiguous()
+    dw = dw.permute(2, 3, 1, 0).to(x.dtype).contiguous()
+    if with_bias:
+        return dw, dy.sum(dim=(0, 1, 2), dtype=torch.float32)
+    return dw
 
 
-def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """dW[ky, kx, ci, co] = sum over b, y, x of x[b, y+ky-1, x+kx-1, ci] * dyz[b, y, x, co]
-    (SAME): x (B, H, W, Cin), dy (B, Ho, Wo, Cout) of x's dtype, the cotangent of the
-    conv at ``stride`` (dyz = dy at stride 1, its zero interleave at stride 2); dW in x's
-    dtype. One call of the K3 weight-gradient kernel (kernels/csrc/conv3x3_wgrad.cu: the
-    partials of a split of the pixels, then their fixed-order sum); its signature is
-    (x's shape, Cout, stride, dtype)."""
+def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, stride: int = 1,
+                  with_bias: bool = False):
+    """dW[ky, kx, ci, co] = sum over b, oy, ox of x[b, s*oy+ky-1, s*ox+kx-1, ci] *
+    dy[b, oy, ox, co] (SAME, zero outside x): x (B, H, W, Cin), dy (B, Ho, Wo, Cout) of
+    x's dtype, the cotangent of the conv at stride s = ``stride``; dW in x's dtype. With
+    ``with_bias`` also the bias gradient db[co] = sum of dy[..., co] in f32, returned as
+    (dW, db). One call of the K3 weight-gradient kernel (kernels/csrc/conv3x3_wgrad.cu:
+    the partials of a split of dy's pixels, with the bias sums, then their fixed-order
+    sum; bf16 on the plan of ``conv_plan.wgrad_plan``); its signature is (x's shape,
+    Cout, stride, with_bias, dtype)."""
     if x.device.type == "cpu":
-        return conv3x3_wgrad_plain(x, dy, stride)
+        return conv3x3_wgrad_plain(x, dy, stride, with_bias)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_wgrad: x must be a CPU or CUDA tensor, got {x.device}")
     if (x.dim() != 4 or dy.dim() != 4 or dy.shape[0] != x.shape[0] or dy.dtype != x.dtype
             or dy.device != x.device or not x.is_contiguous() or not dy.is_contiguous()):
         raise ValueError("conv3x3_wgrad: x (B, H, W, Cin) and dy (B, Ho, Wo, Cout) must be "
                          "contiguous, of one dtype and device")
-    dy = zero_interleave(dy, tuple(x.shape[1:3]), stride)
-    code = kernels.dtype_code(x.dtype)
     b, h, w, cin = x.shape
-    cout = dy.shape[-1]
+    if stride not in (1, 2) or tuple(dy.shape[1:3]) != ((h - 1) // stride + 1,
+                                                         (w - 1) // stride + 1):
+        raise ValueError(f"conv3x3_wgrad: dy {tuple(dy.shape)} is not the stride-{stride} "
+                         f"output of x {tuple(x.shape)}")
+    code = kernels.dtype_code(x.dtype)
+    ho, wo, cout = dy.shape[1:]
     dw = torch.empty((3, 3, cin, cout), device=x.device, dtype=x.dtype)
+    db = torch.empty((cout,), device=x.device, dtype=torch.float32) if with_bias else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    f32 = dict(device=x.device, dtype=torch.float32)
     if code == 1:
         if x.data_ptr() % 16 or dy.data_ptr() % 16:
             raise ValueError("conv3x3_wgrad: bf16 operands must be 16-byte aligned")
-        plan = wgrad_plan(b, h, w, cin, cout)
-        part = torch.empty((plan.kblocks, 9, plan.slices * 16, cout), device=x.device,
-                           dtype=torch.float32)
-        code = kernels.lib().conv3x3_wgrad_bf16(x.data_ptr(), dy.data_ptr(), part.data_ptr(),
-                                                dw.data_ptr(), plan.c_ints, stream)
+        plan = wgrad_plan(b, h, w, cin, cout, stride)
+        part = torch.empty((plan.parts, plan.rows, plan.nt), **f32)
+        pdb = torch.empty((plan.kblocks, plan.nt), **f32) if with_bias else None
+        code = kernels.lib().conv3x3_wgrad_bf16(
+            x.data_ptr(), dy.data_ptr(), part.data_ptr(), _ptr(pdb), dw.data_ptr(), _ptr(db),
+            plan.c_ints, stream)
     else:
-        splits, per = wgrad_f32_split(b, h, w, cin, cout)
-        part = torch.empty((splits, 9 * cin, cout), device=x.device, dtype=torch.float32)
-        code = kernels.lib().conv3x3_wgrad_f32(x.data_ptr(), dy.data_ptr(), part.data_ptr(),
-                                               dw.data_ptr(), b, h, w, cin, cout, splits, per,
-                                               stream)
+        splits, per = wgrad_f32_split(b, ho, wo, cin, cout)
+        part = torch.empty((splits, 9 * cin, cout), **f32)
+        pdb = torch.empty((splits, cout), **f32) if with_bias else None
+        code = kernels.lib().conv3x3_wgrad_f32(
+            x.data_ptr(), dy.data_ptr(), part.data_ptr(), _ptr(pdb), dw.data_ptr(), _ptr(db),
+            b, h, w, cin, cout, stride, splits, per, stream)
     kernels.check(code, "conv3x3_wgrad")
     conv3x3_wgrad.launches += 1
-    conv3x3_wgrad.shapes[(tuple(x.shape), cout, stride, str(x.dtype))] += 1
-    return dw
+    conv3x3_wgrad.shapes[(tuple(x.shape), cout, stride, with_bias, str(x.dtype))] += 1
+    return (dw, db) if with_bias else dw
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 conv3x3.launches = 0
 conv3x3.shapes = Counter()
 conv3x3_dgrad.launches = 0
 conv3x3_dgrad.shapes = Counter()
+conv3x3_dgrad_s2.launches = 0
+conv3x3_dgrad_s2.shapes = Counter()
 conv3x3_wgrad.launches = 0
 conv3x3_wgrad.shapes = Counter()

@@ -22,8 +22,8 @@ from diamond_tpu.ops.fused_norms import _gn_silu_ref
 from diamond_tpu_torch.ops import (conv3x3_dgrad_plain, conv3x3_plain, conv3x3_wgrad_plain,
                                    groupnorm_silu_bwd_plain, groupnorm_silu_plain)
 from diamond_tpu_torch.ops.conv3x3 import Conv3x3Fn, flip_kernel
-from diamond_tpu_torch.ops.conv_plan import (WGRAD_CH, WGRAD_HALO_PX, wgrad_f32_split,
-                                             wgrad_plan, wgrad_plan_ok)
+from diamond_tpu_torch.ops.conv_plan import (SMEM_BLOCK, WGRAD_WGS, wgrad_f32_split, wgrad_plan,
+                                             wgrad_plan_ok)
 from diamond_tpu_torch.ops.fused_norms import GroupNormSiLU
 from diamond_tpu_torch.ops.norm_plan import bwd_plan, bwd_plan_ok, norm_plan, plan_for
 
@@ -167,27 +167,38 @@ def test_bwd_plan_of_a_spilling_sample_and_a_refused_one():
 
 @pytest.mark.parametrize("sig", AC_CONVS + RAGGED_CONVS, ids=str)
 def test_wgrad_plan_fits_the_card_and_covers_every_row_once(sig):
+    """The plan agrees with the kernel's check, fits a block's shared memory, covers Cin
+    with its channel groups and Cout with its N, and its blocks' tiles cover every dy
+    row of every image exactly once, at stride 1 and 2."""
     b, h, w, cin, cout = sig
-    p = wgrad_plan(*sig)
-    assert wgrad_plan_ok(p) and p.smem <= 232_448
-    assert p.slices * WGRAD_CH >= cin and p.nt >= cout
-    rows = np.zeros((b, h), int)
-    for kb in range(p.kblocks):
-        for tile in range(kb, p.tiles, p.kblocks):
-            bb, y0 = tile // p.tiles_y, tile % p.tiles_y * p.tr
-            rows[bb, y0:y0 + min(p.tr, h - y0)] += 1
-    assert (rows == 1).all()
-    splits, per = wgrad_f32_split(*sig)
-    assert per % 16 == 0 and (splits - 1) * per < b * h * w <= splits * per
+    for stride in (1, 2):
+        p = wgrad_plan(*sig, stride)
+        assert wgrad_plan_ok(p) and p.smem <= SMEM_BLOCK
+        assert p.ngroups * p.cg >= cin and p.nt >= cout
+        assert p.mgroups * WGRAD_WGS * p.mpw * 64 >= 9 * p.cg
+        rows = np.zeros((b, p.Ho), int)
+        for kb in range(p.kblocks):
+            for tile in range(kb, p.tiles, p.kblocks):
+                bb, y0 = tile // p.tiles_y, tile % p.tiles_y * p.tr
+                rows[bb, y0:y0 + min(p.tr, p.Ho - y0)] += 1
+        assert (rows == 1).all()
+        splits, per = wgrad_f32_split(b, p.Ho, p.Wo, cin, cout)
+        assert per % 16 == 0 and (splits - 1) * per < b * p.Ho * p.Wo <= splits * per
 
 
 def test_wgrad_plan_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="Cout"):
         wgrad_plan(2, 8, 8, 16, 128)
+    with pytest.raises(ValueError, match="stride"):
+        wgrad_plan(2, 8, 8, 16, 16, 3)
     from dataclasses import replace
     p = wgrad_plan(32, 64, 64, 32, 32)
     assert not wgrad_plan_ok(replace(p, kblocks=p.tiles + 1))
     assert not wgrad_plan_ok(replace(p, smem=p.smem + 128))
+    assert not wgrad_plan_ok(replace(p, mpw=p.mpw - 1))
+    kb4 = p.kblocks // 4 * 4  # clusters of 4: measured slower, so no plan makes them
+    assert wgrad_plan_ok(replace(p, kblocks=kb4, grid=p.ngroups * kb4 * p.mgroups))
+    assert not wgrad_plan_ok(replace(p, cluster=4, kblocks=kb4, grid=p.ngroups * kb4 * p.mgroups))
 
 
 def _ldmatrix_trans(rows):
@@ -197,71 +208,129 @@ def _ldmatrix_trans(rows):
     return [rows[i].T for i in range(4)]
 
 
-def _replay_wgrad(x, dy, p):
-    """conv3x3_wgrad.cu's bf16 kernel, block by block, warp by warp, K step by K step:
-    the halo and dy tiles as the loads fill them, each lane's ldmatrix row address, the
-    fragments of mma m16n8k16 (A rows = 16 channels, B columns = 8 of Cout), the
-    per-block partials, then their sum in block order."""
+def _replay_wgrad(x, dy, p, with_bias=False):
+    """conv3x3_wgrad.cu's bf16 kernel, block by block, warpgroup by warpgroup, warp by
+    warp, K step by K step, on an emulated shared memory (one float per bf16 element,
+    the kernel's byte offsets halved, NaN where nothing was copied), blocks in the
+    kernel's order (K split fastest, clusters of neighbouring K splits): the halo and dy
+    tiles as the loads fill them (stride 2: even halo columns first; dy in N-major core
+    matrices), each lane's
+    ldmatrix.trans row address (its M-tile slot's 8-channel chunk, tap shift and pixel),
+    the wgmma B operand read through the core-matrix layout, the bias sums as the
+    threads take them, each cluster's partial, then their sum in order."""
     b, h, w, cin = x.shape
-    cout = dy.shape[-1]
-    hc = w + 2
-    part = np.zeros((p.kblocks, 9, p.slices * WGRAD_CH, cout), np.float64)
+    cout, s, nt = dy.shape[-1], p.stride, p.nt
+    nq, cpt, half = nt // 8, p.cg // 8, (p.hc + 1) // 2
+    part = np.zeros((p.kblocks // p.cluster * p.ngroups, p.rows, nt))
+    pdb = np.zeros((p.kblocks, nt))
+    stage = (p.halo_bytes + p.dy_bytes) // 2
     for block in range(p.grid):
-        sl, kb = block % p.slices, block // p.slices
-        ci0 = sl * WGRAD_CH
-        acc = np.zeros((9, WGRAD_CH, p.nt))
-        for tile in range(kb, p.tiles, p.kblocks):
+        kb, gm = block % p.kblocks, block // p.kblocks
+        g, mg = divmod(gm, p.mgroups)
+        c0 = g * p.cg
+        acc = np.zeros((p.rows, nt))
+        bsum = np.zeros((WGRAD_WGS * 128, 8))
+        for it, tile in enumerate(range(kb, p.tiles, p.kblocks)):
+            sm = np.full(p.stages * stage, np.nan)
+            base = (it % 2 if p.stages == 2 else 0) * stage
             bb, y0 = tile // p.tiles_y, tile % p.tiles_y * p.tr
-            rows = min(p.tr, h - y0)
-            tile_px = rows * w
-            halo = np.zeros(((p.tr + 2) * hc, WGRAD_CH))
-            for px in range((p.tr + 2) * hc):
-                iy, ix = y0 - 1 + px // hc, px % hc - 1
-                if 0 <= iy < h and 0 <= ix < w:
-                    ch = x[bb, iy, ix, ci0:ci0 + WGRAD_CH]
-                    halo[px, :len(ch)] = ch
-            dys = np.zeros((p.ksteps * 16, p.nt))
-            dys[:tile_px, :cout] = dy[bb, y0:y0 + rows].reshape(-1, cout)
-            for warp in range(9):
-                ky, kx = divmod(warp, 3)
-                for s in range(p.ksteps):
-                    a_rows = np.zeros((4, 8, 8))
-                    b_rows = np.zeros((p.nt // 16, 4, 8, 8))
-                    for lane in range(32):
-                        mi, mr = lane >> 3, lane & 7
-                        k = s * 16 + (mi >> 1) * 8 + mr
-                        kk = k if k < tile_px else 0
-                        hp = (kk // w + ky) * hc + kk % w + kx
-                        a_ch = (mi & 1) * 8
-                        a_rows[mi, mr] = halo[hp, a_ch:a_ch + 8]
-                        for j2 in range(p.nt // 16):
-                            bp, bc = s * 16 + (mi & 1) * 8 + mr, 16 * j2 + (mi >> 1) * 8
-                            b_rows[j2, mi, mr] = dys[bp, bc:bc + 8]
-                    m0, m1, m2, m3 = _ldmatrix_trans(a_rows)
-                    a = np.block([[m0, m2], [m1, m3]])  # A[m = channel][k = pixel]
-                    for j2 in range(p.nt // 16):
-                        n0, n1, n2, n3 = _ldmatrix_trans(b_rows[j2])
-                        for jj, (lo, hi) in enumerate(((n0, n1), (n2, n3))):
-                            bm = np.concatenate([lo, hi], axis=1).T  # B[k = pixel][n]
-                            n = 16 * j2 + 8 * jj
-                            acc[warp, :, n:n + 8] += a @ bm
-        part[kb, :, ci0:ci0 + WGRAD_CH] = acc[:, :, :cout]
-    return part.sum(axis=0)[:, :cin].reshape(3, 3, cin, cout)
+            tile_px = min(p.tr, p.Ho - y0) * p.Wo
+            for hy in range(p.hr):
+                for hx in range(p.hc):
+                    iy, ix = y0 * s - 1 + hy, hx - 1
+                    slot = hx if s == 1 else (hx & 1) * half + (hx >> 1)
+                    off = base + ((hy * p.hc + slot) * p.pxb) // 2
+                    for ch in range(cpt):
+                        c = c0 + ch * 8
+                        v = np.zeros(8)
+                        if 0 <= iy < h and 0 <= ix < w and c < cin:
+                            src = x[bb, iy, ix, c:c + 8]
+                            v[:len(src)] = src
+                        sm[off + ch * 8:off + ch * 8 + 8] = v
+            dbase = base + p.halo_bytes // 2
+            rows_dy = dy[bb, y0:y0 + p.tr].reshape(-1, cout)
+            for px in range(p.ksteps * 16):
+                for q in range(nq):
+                    v = np.zeros(8)
+                    if px < tile_px and q * 8 < cout:
+                        src = rows_dy[px, q * 8:q * 8 + 8]
+                        v[:len(src)] = src
+                    off = dbase + (((px >> 3) * nq + q) * 128 + (px & 7) * 16) // 2
+                    sm[off:off + 8] = v
+            for wg in range(WGRAD_WGS):
+                for j in range(p.mpw):
+                    mt = mg * WGRAD_WGS * p.mpw + wg + WGRAD_WGS * j
+                    for warp in range(4):
+                        for st in range(p.ksteps):
+                            rows = np.zeros((4, 8, 8))
+                            for lane in range(32):
+                                mi = lane >> 3
+                                chunk = mt * 8 + warp * 2 + (mi & 1)
+                                chunk = chunk if chunk < 9 * cpt else 0
+                                tap, cc = divmod(chunk, cpt)
+                                ky, kx = divmod(tap, 3)
+                                koff = kx if s == 1 else (0, half, 1)[kx]
+                                k = st * 16 + (mi >> 1) * 8 + (lane & 7)
+                                k = k if k < tile_px else 0
+                                py, pxx = divmod(k, p.Wo)
+                                addr = ((py * s * p.hc + pxx) * p.pxb
+                                        + (ky * p.hc + koff) * p.pxb + cc * 16)
+                                rows[mi, lane & 7] = sm[base + addr // 2:base + addr // 2 + 8]
+                            m0, m1, m2, m3 = _ldmatrix_trans(rows)
+                            a = np.block([[m0, m2], [m1, m3]])  # A[row][k = pixel]
+                            kk = st * 16 + np.arange(16)[:, None]
+                            nn = np.arange(nt)[None, :]
+                            bmat = sm[dbase + (((kk >> 3) * nq + nn // 8) * 128
+                                               + (kk & 7) * 16 + (nn % 8) * 2) // 2]
+                            assert not (np.isnan(a).any() or np.isnan(bmat).any())
+                            r0 = mt * 64 + warp * 16
+                            acc[r0:r0 + 16] += a @ bmat
+            if with_bias and g == 0 and mg == 0:
+                phases = WGRAD_WGS * 128 // (8 * nq)
+                for tid in range(WGRAD_WGS * 128):
+                    r8, bq, ph = tid & 7, (tid >> 3) % nq, tid // (8 * nq)
+                    for c in range(ph, p.ksteps * 2, phases):
+                        off = dbase + ((c * nq + bq) * 128 + r8 * 16) // 2
+                        bsum[tid] += sm[off:off + 8]
+        # a cluster's blocks sum into one partial; the blocks of an (M-group) fill
+        # disjoint rows of it
+        part[kb // p.cluster * p.ngroups + g] += acc
+        if with_bias and g == 0 and mg == 0:
+            phases = WGRAD_WGS * 128 // (8 * nq)
+            for n in range(nt):
+                q, e = divmod(n, 8)
+                pdb[kb, n] = sum(bsum[(f * nq + q) * 8 + r, e] for f in range(phases)
+                                 for r in range(8))
+    dw = np.zeros((9, cin, cout))
+    for ci in range(cin):
+        g = ci // p.cg
+        for tap in range(9):
+            for kc in range(p.kblocks // p.cluster):
+                dw[tap, ci] += part[kc * p.ngroups + g, tap * p.cg + ci - g * p.cg, :cout]
+    return dw.reshape(3, 3, cin, cout), pdb.sum(axis=0)[:cout]
 
 
-@pytest.mark.parametrize("sig", [(2, 9, 9, 3, 24), (3, 5, 7, 6, 3), (2, 3, 3, 48, 16),
-                                 (1, 2, 40, 16, 8)], ids=str)
+@pytest.mark.parametrize("sig", [(2, 9, 9, 3, 24, 1), (3, 5, 7, 6, 3, 2), (2, 7, 9, 32, 16, 2),
+                                 (1, 3, 20, 48, 8, 1), (1, 3, 5, 80, 8, 2), (2, 6, 5, 15, 64, 1),
+                                 (67, 2, 2, 64, 8, 1), (67, 3, 2, 32, 16, 2)], ids=str)
 def test_wgrad_kernel_fragments_replayed_give_the_weight_gradient(sig):
     """The bf16 kernel's data flow, replayed: every lane's halo and dy addresses (the
-    tap's shift, image-row ends, the ragged last K step reading pixel 0 against zero dy
-    rows, channels past Cin and Cout zero), the transposed fragments and the partials'
-    layout give the weight gradient."""
-    b, h, w, cin, cout = sig
+    chunk's tap shift, stride 2 with the even halo columns first, image-row ends, the
+    ragged last K step reading pixel 0 against zero dy rows, channels past Cin and Cout
+    zero, M-tile slots past the rows reading chunk 0), the transposed fragments, the
+    bias sums and the partials' layout give the weight and bias gradients: Cin = 3, 6,
+    15, 32 (one M-tile holds several taps), 48 (slots to spare) and 80 (two channel
+    groups); the M-tiles shared out over several blocks (few K splits) and held by one
+    block's warpgroups (B = 67: enough K splits)."""
+    b, h, w, cin, cout, stride = sig
     rng = np.random.default_rng(3)
     x = rng.normal(size=(b, h, w, cin))
-    dy = rng.normal(size=(b, h, w, cout))
-    p = wgrad_plan(*sig)
-    got = _replay_wgrad(x, dy, p)
-    ref = conv3x3_wgrad_plain(t(x.astype(np.float32)), t(dy.astype(np.float32))).numpy()
-    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
-    assert WGRAD_HALO_PX % 16 == 0 and p.dy_stride % 16 == 0  # ldmatrix rows 16-byte aligned
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    dy = rng.normal(size=(b, ho, wo, cout))
+    p = wgrad_plan(b, h, w, cin, cout, stride)
+    got, db = _replay_wgrad(x, dy, p, with_bias=True)
+    ref, ref_db = conv3x3_wgrad_plain(t(x.astype(np.float32)), t(dy.astype(np.float32)), stride,
+                                      with_bias=True)
+    np.testing.assert_allclose(got, ref.numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(db, ref_db.numpy(), rtol=1e-4, atol=1e-4)
+    assert p.pxb % 16 == 0 and (p.pxb // 16) % 2 == 1  # ldmatrix rows: 16-byte aligned, no bank conflict

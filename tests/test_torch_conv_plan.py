@@ -173,3 +173,59 @@ def test_int8_conv_takes_the_installed_copy_or_makes_one():
     ref = quant.conv3x3_q8_static(x, tree.conv.kernel, c["act_scale"], 1, c["w_q"], c["w_scale"],
                                   tree.conv.bias, torch.float32)
     assert torch.equal(y, ref)
+
+
+# K3's weight gradient (kernels/csrc/conv3x3_wgrad.cu): every (H, Cin, Cout, stride) of x
+# (32, H, H, Cin) that the denoiser and actor-critic train steps send it, then ragged
+# sizes (B, H, W, Cin, Cout, stride).
+WGRAD_STEPS = [(64, 128, 64, 1), (64, 64, 64, 1), (64, 64, 64, 2), (64, 15, 64, 1),
+               (64, 64, 3, 1), (32, 128, 64, 1), (32, 64, 64, 1), (32, 64, 64, 2),
+               (16, 128, 64, 1), (16, 64, 64, 1), (16, 64, 64, 2), (8, 128, 64, 1),
+               (8, 64, 64, 1), (64, 3, 32, 1), (64, 32, 32, 1), (32, 32, 32, 1),
+               (16, 32, 64, 1)]
+WGRAD_RAGGED = [(2, 7, 9, 32, 24, 1), (2, 7, 9, 32, 24, 2), (2, 9, 6, 16, 3, 2),
+                (3, 5, 7, 3, 32, 1), (3, 5, 7, 128, 64, 2), (1, 3, 300, 48, 8, 1)]
+
+
+@pytest.mark.parametrize("sig", [(32, h, h, ci, co, s) for h, ci, co, s in WGRAD_STEPS]
+                         + WGRAD_RAGGED, ids=str)
+def test_wgrad_plan_covers_every_dy_pixel_once_and_reads_inside_the_halo(sig):
+    """The weight gradient's plan fits the card (the kernel's own check, 227 KB of shared
+    memory, one block per SM); the tiles of its blocks cover every dy pixel of every
+    image exactly once; and every lane's A address (each M-tile slot's tap shift and
+    channel chunk, each K step's pixel, stride 2's even-first halo columns) lies inside
+    the halo buffer of its tile."""
+    from diamond_tpu_torch.ops.conv_plan import WGRAD_WGS, wgrad_plan, wgrad_plan_ok
+
+    b, h, w, cin, cout, s = sig
+    p = wgrad_plan(b, h, w, cin, cout, s)
+    assert wgrad_plan_ok(p) and p.smem <= conv_plan.SMEM_BLOCK
+    assert p.grid <= conv_plan.NUM_SMS or p.kblocks == 1
+    hits = np.zeros((b, p.Ho * p.Wo), int)
+    for kb in range(p.kblocks):
+        for tile in range(kb, p.tiles, p.kblocks):
+            bb, y0 = divmod(tile, p.tiles_y)
+            y0 *= p.tr
+            hits[bb, y0 * p.Wo:min(y0 + p.tr, p.Ho) * p.Wo] += 1
+    assert (hits == 1).all()
+    cpt, half = p.cg // 8, (p.hc + 1) // 2
+    lanes = np.arange(32)
+    mi = lanes >> 3
+    a_px = (mi >> 1) * 8 + (lanes & 7)
+    for y0 in range(0, p.Ho, p.tr):
+        tile_px = min(p.tr, p.Ho - y0) * p.Wo
+        for st in range(p.ksteps):
+            k = st * 16 + a_px
+            k = np.where(k < tile_px, k, 0)
+            pix = (k // p.Wo * s * p.hc + k % p.Wo) * p.pxb
+            for wg, j, mg in np.ndindex(WGRAD_WGS, p.mpw, p.mgroups):
+                mt = mg * WGRAD_WGS * p.mpw + wg + WGRAD_WGS * j
+                assert mt * 64 < p.rows
+                for warp in range(4):
+                    chunk = mt * 8 + warp * 2 + (mi & 1)
+                    chunk = np.where(chunk < 9 * cpt, chunk, 0)
+                    tap, cc = chunk // cpt, chunk % cpt
+                    ky, kx = tap // 3, tap % 3
+                    koff = kx if s == 1 else np.choose(kx, [0, half, 1])
+                    addr = pix + (ky * p.hc + koff) * p.pxb + cc * 16
+                    assert addr.min() >= 0 and (addr + 16).max() <= p.hr * p.hc * p.pxb

@@ -534,25 +534,106 @@ def test_k1_backward_and_stride2_gradients_match_plain_versions(dtype):
 @pytest.mark.cuda
 def test_k1_and_stride2_autograd_pass_a_directional_gradcheck():
     """AdaGroupNormSiLU and the stride-2 Conv3x3Fn on the card in f32 at a tiny shape:
-    autograd's directional derivative (K1's backward, K3's stride-2 gradients) equals
-    central differences of the forward kernels to 2 %, and their counters rise."""
+    autograd's directional derivative (K1's backward, K3's stride-2 gradients: the
+    stride-2 data-gradient kernel and the weight gradient with the bias's) equals central
+    differences of the forward kernels to 2 %, and their counters rise."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    from diamond_tpu_torch.ops import adagn_silu_bwd, conv3x3_dgrad, conv3x3_wgrad
+    from diamond_tpu_torch.ops import adagn_silu_bwd, conv3x3_dgrad_s2, conv3x3_wgrad
 
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(12)
     x = (torch.randn(2, 6, 6, 64, device="cuda", generator=g) * 2 + 0.5).requires_grad_()
     ss = (0.5 * torch.randn(2, 128, device="cuda", generator=g)).requires_grad_()
-    before = (adagn_silu_bwd.launches, conv3x3_dgrad.launches, conv3x3_wgrad.launches)
+    before = (adagn_silu_bwd.launches, conv3x3_dgrad_s2.launches, conv3x3_wgrad.launches)
     for silu in (True, False):
         _directional_check(lambda a, s: adagn_silu(a, s, 2, silu), [x, ss])
     xc = torch.randn(2, 7, 6, 16, device="cuda", generator=g).requires_grad_()
     k = (torch.randn(3, 3, 16, 8, device="cuda", generator=g) / 12).requires_grad_()
     bc = torch.randn(8, device="cuda", generator=g).requires_grad_()
     _directional_check(lambda a, w, b: conv3x3(a, w, b, 2), [xc, k, bc])
-    after = (adagn_silu_bwd.launches, conv3x3_dgrad.launches, conv3x3_wgrad.launches)
+    after = (adagn_silu_bwd.launches, conv3x3_dgrad_s2.launches, conv3x3_wgrad.launches)
     assert all(a > b for a, b in zip(after, before))
+
+
+# The redesigned gradients: the weight gradient (B, H, W, Cin, Cout, stride) at every
+# signature of the denoiser step and the AC step (B = 32), then odd sizes and Cin = 3, 15
+# and 128; the stride-2 data gradient (B, H, W, Cin, Cout) at the denoiser's Downsample
+# convs, then odd sizes and Cin = 3, 15 and 128.
+WGRAD_STEP_SHAPES = [(32, h, h, ci, co, s) for h, ci, co, s in [
+    (64, 128, 64, 1), (64, 64, 64, 1), (64, 64, 64, 2), (64, 15, 64, 1), (64, 64, 3, 1),
+    (32, 128, 64, 1), (32, 64, 64, 1), (32, 64, 64, 2), (16, 128, 64, 1), (16, 64, 64, 1),
+    (16, 64, 64, 2), (8, 128, 64, 1), (8, 64, 64, 1), (64, 3, 32, 1), (64, 32, 32, 1),
+    (32, 32, 32, 1), (16, 32, 64, 1)]] + [
+    (2, 9, 9, 32, 24, 2), (2, 9, 9, 32, 24, 1), (3, 7, 5, 3, 32, 2), (3, 7, 5, 15, 8, 1),
+    (2, 9, 6, 16, 3, 2), (2, 9, 6, 128, 64, 2), (2, 9, 9, 128, 40, 1), (1, 5, 300, 48, 16, 1)]
+DGRAD_S2_SHAPES = [(32, 64, 64, 64, 64), (32, 32, 32, 64, 64), (32, 16, 16, 64, 64),
+                   (2, 9, 9, 32, 24), (3, 7, 5, 3, 32), (2, 9, 6, 15, 3), (2, 9, 9, 128, 64),
+                   (2, 7, 9, 64, 80), (1, 5, 300, 16, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wgrad_with_bias_and_stride2_dgrad_match_plain_versions(dtype):
+    """The weight-gradient kernel (wgmma, native stride 2, the bias gradient folded in)
+    and the stride-2 data-gradient kernel against their plain versions: bf16 within 1/64
+    of max(1, max |plain|), f32 (TF32 off) within 1e-3; db against dy's f32 sum within
+    1e-3 of max(1, its largest |value|); the weight gradient without the bias equal to it
+    with; two calls give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diamond_tpu_torch.ops import (conv3x3_dgrad, conv3x3_dgrad_s2, conv3x3_dgrad_s2_plain,
+                                       conv3x3_wgrad, conv3x3_wgrad_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    tol = 1e-3 if dt == torch.float32 else 1 / 64
+    g = torch.Generator(device="cuda").manual_seed(14)
+    for b, h, w, cin, cout, s in WGRAD_STEP_SHAPES:
+        x = torch.randn(b, h, w, cin, device="cuda", generator=g).to(dt)
+        dy = torch.randn(b, (h - 1) // s + 1, (w - 1) // s + 1, cout, device="cuda",
+                         generator=g).to(dt)
+        dw, db = conv3x3_wgrad(x, dy, s, with_bias=True)
+        _bwd_close(dw, conv3x3_wgrad_plain(x, dy, s), tol)
+        _bwd_close(db, dy.sum(dim=(0, 1, 2), dtype=torch.float32), 1e-3)
+        again = conv3x3_wgrad(x, dy, s, with_bias=True)
+        alone = conv3x3_wgrad(x, dy, s)
+        torch.cuda.synchronize()
+        assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+        assert torch.equal(dw, alone), (b, h, w, cin, cout, s)
+    for b, h, w, cin, cout in DGRAD_S2_SHAPES:
+        dy = torch.randn(b, (h + 1) // 2, (w + 1) // 2, cout, device="cuda", generator=g).to(dt)
+        k = (torch.randn(3, 3, cin, cout, device="cuda", generator=g) / (9 * cin) ** .5).to(dt)
+        dx = conv3x3_dgrad_s2(dy, k, (h, w))
+        _bwd_close(dx, conv3x3_dgrad_s2_plain(dy, k, (h, w)), tol)
+        again = conv3x3_dgrad(dy, k, 2, (h, w))  # the data gradient's stride-2 route
+        torch.cuda.synchronize()
+        assert torch.equal(dx, again), (b, h, w, cin, cout)
+
+
+@pytest.mark.cuda
+def test_stride2_conv_with_bias_passes_a_directional_gradcheck():
+    """Conv3x3Fn at stride 2 with a bias, f32 on the card, at odd sizes and Cin = 3 and 15:
+    autograd's directional derivative (the stride-2 data-gradient kernel and the weight
+    gradient with the bias's in one call) equals central differences of K3 to 2 %; the
+    stride-2 kernel and the weight gradient count their launches, the stride-1 data
+    gradient (K3 on dy) none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diamond_tpu_torch.ops import conv3x3_dgrad, conv3x3_dgrad_s2, conv3x3_wgrad
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(15)
+    for b, h, w, cin, cout in [(2, 9, 9, 16, 24), (3, 7, 5, 3, 8), (2, 9, 6, 15, 32)]:
+        xc = torch.randn(b, h, w, cin, device="cuda", generator=g).requires_grad_()
+        k = (torch.randn(3, 3, cin, cout, device="cuda", generator=g) / (3 * cin ** .5)
+             ).requires_grad_()
+        bc = torch.randn(cout, device="cuda", generator=g).requires_grad_()
+        before = (conv3x3_dgrad_s2.launches, conv3x3_wgrad.launches, conv3x3_dgrad.launches)
+        _directional_check(lambda a, w_, b_: conv3x3(a, w_, b_, 2), [xc, k, bc])
+        after = (conv3x3_dgrad_s2.launches, conv3x3_wgrad.launches, conv3x3_dgrad.launches)
+        assert after[0] > before[0] and after[1] > before[1] and after[2] == before[2]
 
 
 @pytest.mark.cuda
