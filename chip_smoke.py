@@ -31,8 +31,10 @@ result line):
      warm-up and AC_STEPS timed steps -> ms per step, training env_frames/s, the
      backward kernels' launches (K2's backward, K3's data and weight gradients each
      > 0), peak memory; loss and gradient norm finite, the actor-critic's weights
-     moved, the world model's unchanged and without gradients; one step profiled and
-     one under the sync debug mode;
+     moved, the world model's unchanged and without gradients; one step profiled (kernel
+     launch calls at most those of a step whose K2 backward still made a second launch,
+     less those launches, and no cast or sum under the norm backwards) and one under the
+     sync debug mode;
   6c. the denoiser train step (training.make_denoiser_train_step, B=32 segments of 6
      frames: two autoregressive windows, bf16 compute, trainer.yaml's denoiser optimizer
      with warmup 0) on a deep copy of the agent's denoiser: counts set to 0, one warm-up
@@ -42,13 +44,19 @@ result line):
      weight gradient, stride 2 and the bias gradient apart), peak memory; one step
      profiled (device busy, the backward Functions' CPU time per call, kernel launch
      calls at most those of a conv backward that still summed the bias and interleaved
-     and flipped at stride 2, less those launches, and no bias sum, zero interleave or
-     stride-2 flip under the conv's backward), one under the sync debug mode; every parameter gets a finite gradient and moves, the
-     agent's denoiser stays untouched; the host cost of each backward piece per call;
+     and flipped at stride 2 and of norm backwards that still made K2's second launch
+     and cast their affine gradients, less those launches, and no bias sum, zero
+     interleave or stride-2 flip under the conv's backward, no cast or sum under the
+     norm backwards), one under the sync debug mode; every parameter gets a finite
+     gradient and moves, the agent's denoiser stays untouched; the host cost of each
+     backward piece per call;
   7. each kernel against its plain PyTorch version at every shape and dtype its paths
      sent it (the backward kernels: the AC step's and the denoiser step's), and in f32
      (TF32 off), with device times, bounds and library yardsticks (the weight gradient
-     also its bias gradient's error); the backward kernels repeat bit for bit;
+     also its bias gradient's error); the backward kernels repeat bit for bit; K1/K2
+     forward with the moments output gives the same y as without, and the moments
+     (written by the forward kernel and fed to the norm backwards) agree with the
+     plain ones;
      the share of the bound; for the 3x3 convs also the ratio to cuDNN's bf16 conv and
      the blocks of the launch plan, for the norms the cluster size and blocks of theirs;
      K4's per-sample epilogue at the int8 path's norm shapes;
@@ -114,10 +122,16 @@ REPEATS = ("groupnorm_silu_bwd", "conv3x3_wgrad", "adagn_silu_bwd", "conv3x3_dgr
 # the bias gradient, summed in the weight-gradient kernel: within DB_TOL of max(1, max
 # |dy's f32 sum|) (sums of up to 131k terms in another order)
 DB_TOL = 1e-3
+# the moments K1/K2's forward writes for the backward (f32 mean and 1/std per sample and
+# group): within MOMENTS_TOL of max(1, their largest |value|) of the plain ones
+MOMENTS_TOL = 1e-6
 # The denoiser step's kernel launch calls (NVIDIA H100 80GB HBM3, 700 W) when its conv
 # backward still summed the bias with its own reduction and, at stride 2, interleaved dy
-# and flipped the kernel: the step must make at most this many less those launches
+# and flipped the kernel, and the norm backwards still made K2's second launch and cast
+# their affine gradients: the step must make at most this many less those launches
 DENOISER_LAUNCH_CALLS_BEFORE = 2882
+# The AC step's (the same card) when the norm backwards still made those launches
+AC_LAUNCH_CALLS_BEFORE = 35869
 # max |kernel - plain| allowed, as a share of max(1, max |plain|): f32 sums in another
 # order (TF32 off on both sides); bf16 outputs are rounded once on both sides and may
 # differ by one bf16 ulp (1/128 relative), so 2 ulps are allowed. The int8 conv is exact
@@ -237,7 +251,7 @@ def gn_autograd_ms(name, args) -> float:
 
     xr = args[0].permute(0, 3, 1, 2).detach().requires_grad_()
     dyr = args[1].permute(0, 3, 1, 2)
-    g, silu = args[-2:]
+    g, silu = args[-3:-1]  # the moments last: autograd recomputes its own
     if name == "adagn_silu_bwd":
         c = args[0].shape[-1]
         ss = args[2].to(args[0].dtype).detach().requires_grad_()
@@ -272,14 +286,14 @@ def bound(name, args):
     n, es = x.numel(), x.element_size()
     b, c = x.shape[0], x.shape[-1]
     small = sum(a.numel() * a.element_size() for a in args[1:] if isinstance(a, torch.Tensor))
-    if name == "groupnorm_silu_bwd":  # x, dy, scale, bias -> dx, dscale, dbias (f32)
-        # f32 element counts: statistics 3, x̂ and o 4, SiLU' 8, the sums 8, dx 5
-        ops = n * 28
-        byts = 3 * n * es + sum(a.numel() * a.element_size() for a in args[2:4]) + 2 * c * 4
-        kind = "f32_simt"
-    elif name == "adagn_silu_bwd":  # x, dy, scale_shift -> dx, d_scale_shift (B, 2C) f32
-        ops = n * 28
-        byts = 3 * n * es + args[2].numel() * args[2].element_size() + b * 2 * c * 4
+    if name in ("groupnorm_silu_bwd", "adagn_silu_bwd"):
+        # x, dy, (scale, bias | scale_shift), moments -> dx, (dscale, dbias | d_scale_shift)
+        # in the affine's dtype; f32 element counts: x̂ and o 4, SiLU' 8, the sums 8, dx 5
+        aff = args[2:4] if name == "groupnorm_silu_bwd" else args[2:3]
+        mom = args[-1]
+        ops = n * 25
+        byts = (3 * n * es + 2 * sum(a.numel() * a.element_size() for a in aff)
+                + mom.numel() * mom.element_size())
         kind = "f32_simt"
     elif name == "conv3x3_wgrad":  # x, dy (B, Ho, Wo, Cout), stride, bias -> dW, (db f32)
         dy, with_bias = args[1], args[3]
@@ -357,16 +371,18 @@ def make_inputs(name, sig, dtype, gen):
         w = ((torch.rand((3, 3, cin, shape[-1]), generator=gen, device=dev) * 2 - 1)
              / (9 * cin) ** 0.5).to(dtype)
         return (rnd(*shape).to(dtype), w, stride, hw)
-    if name == "groupnorm_silu_bwd":
-        shape, _, silu = sig
-        c = shape[-1]
-        return ((2 * rnd(*shape) + 0.5).to(dtype), rnd(*shape).to(dtype), 1 + 0.1 * rnd(c),
-                0.1 * rnd(c), max(1, c // 32), silu)
-    if name == "adagn_silu_bwd":  # the FiLM rows in the run's dtype, as the model makes them
+    if name == "groupnorm_silu_bwd":  # the moments last, as the K2 forward kernel wrote them
         shape, _, silu, _ = sig
-        c = shape[-1]
-        return ((2 * rnd(*shape) + 0.5).to(dtype), rnd(*shape).to(dtype),
-                (0.5 * rnd(shape[0], 2 * c)).to(dtype), max(1, c // 32), silu)
+        c, g = shape[-1], max(1, shape[-1] // 32)
+        x, sc, bi = (2 * rnd(*shape) + 0.5).to(dtype), 1 + 0.1 * rnd(c), 0.1 * rnd(c)
+        _, mom = ops.groupnorm_silu_with_moments(x, sc, bi, g, silu)
+        return (x, rnd(*shape).to(dtype), sc, bi, g, silu, mom)
+    if name == "adagn_silu_bwd":  # the FiLM rows in the run's dtype, as the model makes them;
+        shape, _, silu, _ = sig   # the moments as the K1 forward kernel wrote them
+        c, g = shape[-1], max(1, shape[-1] // 32)
+        x, ss = (2 * rnd(*shape) + 0.5).to(dtype), (0.5 * rnd(shape[0], 2 * c)).to(dtype)
+        _, mom = ops.adagn_silu_with_moments(x, ss, g, silu)
+        return (x, rnd(*shape).to(dtype), ss, g, silu, mom)
     if name == "conv3x3":
         shape, cout, stride, has_bias, _ = sig
         x = rnd(*shape).to(dtype)
@@ -421,11 +437,13 @@ def plain_args(name, args):
 def norm_launch(name, args) -> tuple:
     """(n, blocks) of a norm kernel's launch plan on the rollout's inputs, as this card
     launches it: the blocks per sample's cluster and the grid."""
-    from diamond_tpu_torch.ops.fused_norms import launch_plan, placed_bwd_plan
+    from diamond_tpu_torch.ops.fused_norms import launch_plan
+    from diamond_tpu_torch.ops.norm_plan import bwd_plan
 
-    if name in ("groupnorm_silu_bwd", "adagn_silu_bwd"):
-        x, g = args[0], args[-2]
-        p = placed_bwd_plan(launch_plan(x, g, name), x.device.index, name == "adagn_silu_bwd")
+    if name in ("groupnorm_silu_bwd", "adagn_silu_bwd"):  # the backward's own plan
+        x, g = args[0], args[-3]
+        b, h, w, c = x.shape
+        p = bwd_plan(b, h * w, c, g, x.element_size())
         return p.n, p.blocks
     x, g = args[0], args[2] if name.startswith("adagn") else args[3]
     p = launch_plan(x, g, name, name.endswith("_q8"))
@@ -452,13 +470,40 @@ def conv_blocks(name, args) -> int:
     return conv_plan.k3_plan(b, h, w, cin, args[1].shape[-1], args[3]).grid
 
 
+def moments_err(x, moments, g) -> float:
+    """The moments a K1/K2 forward kernel wrote (its mean and 1/std per sample and group)
+    against the plain ones (``group_moments``, f32): within MOMENTS_TOL of max(1, their
+    largest |value|)."""
+    import torch
+    from diamond_tpu_torch import ops
+
+    ref = ops.group_moments(x, g)
+    scale = max(1.0, ref.abs().max().item())
+    e = (moments - ref).abs().max().item()
+    check(bool(torch.isfinite(moments).all()) and e <= MOMENTS_TOL * scale,
+          f"moments of {tuple(x.shape)} {x.dtype}: max abs err {e} > {MOMENTS_TOL} * {scale}")
+    return e
+
+
 def compare_one(name, kernel, plain, args, dt_name):
-    """Run kernel and plain version on args; check; return the max abs error."""
+    """Run kernel and plain version on args; check; return the max abs error. K1/K2: the
+    forward that also writes the moments gives the same bits, and its moments agree with
+    the plain ones; their backwards: the moments they are given (the forward kernel's)
+    too (``compare_one.moments_err``)."""
     import torch
     from diamond_tpu_torch import ops
 
     y, ref = kernel(*args), plain(*plain_args(name, args))
     torch.cuda.synchronize()
+    # (an older checkout, timed by scripts/time_norms.py, has no moments)
+    with_moments = getattr(ops, name.replace("_bwd", "") + "_with_moments", None)
+    if name in ("adagn_silu", "groupnorm_silu") and with_moments:  # y and the moments
+        y_m, mom = with_moments(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(y_m, y), f"{name} {dt_name}: writing the moments changed y")
+        compare_one.moments_err = moments_err(args[0], mom, args[-2])
+    if name in ("groupnorm_silu_bwd", "adagn_silu_bwd") and with_moments:
+        compare_one.moments_err = moments_err(args[0], args[-1], args[-3])
     if name in REPEATS:  # a fixed order: the same bits again
         again = kernel(*args)
         torch.cuda.synchronize()
@@ -468,13 +513,14 @@ def compare_one(name, kernel, plain, args, dt_name):
     if name in ("groupnorm_silu_bwd", "adagn_silu_bwd"):  # dx, then the affine's gradient
         parts = ("dx", "dscale", "dbias") if name == "groupnorm_silu_bwd" else (
             "dx", "d_scale_shift")
-        err = 0.0
+        err, compare_one.tol_share = 0.0, 0.0
         for part, a, r, tol in zip(parts, y, ref, TOL[dt_name][name]):
             scale = max(1.0, r.float().abs().max().item())
             e = (a.float() - r.float()).abs().max().item()
             check(bool(torch.isfinite(a).all()) and e <= tol * scale,
                   f"{name} {dt_name} {part}: max abs err {e} > {tol} * {scale}")
             err = max(err, e)
+            compare_one.tol_share = max(compare_one.tol_share, e / (tol * scale))
         return err
     if name == "conv3x3_wgrad" and args[3]:  # (dW, db): db against dy's f32 sum
         y, db = y
@@ -499,6 +545,8 @@ def compare_one(name, kernel, plain, args, dt_name):
 
 
 compare_one.db_err = None  # the bias gradient's error of the last weight-gradient call
+compare_one.moments_err = None  # the saved moments' error of the last K1/K2 call
+compare_one.tol_share = None  # the norm backwards' largest error as a share of its limit
 
 
 def _zero_totals() -> dict:
@@ -535,7 +583,7 @@ def compare_kernels(shapes, launches, runs):
             for dt_name in ("bfloat16", "float32"):
                 as_run = run_dtype == f"torch.{dt_name}"
                 args = make_inputs(name, sig, getattr(torch, dt_name), gen)
-                compare_one.db_err = None
+                compare_one.db_err = compare_one.moments_err = compare_one.tol_share = None
                 e = compare_one(name, kernel, plain, args, dt_name)
                 err[dt_name] = max(err[dt_name], e)
                 t_k = cuda_time_ms(lambda: kernel(*args))
@@ -544,6 +592,10 @@ def compare_kernels(shapes, launches, runs):
                            max_abs_err=e, ms=t_k, plain_ms=t_p)
                 if compare_one.db_err is not None:
                     row["db_err"] = compare_one.db_err
+                if compare_one.moments_err is not None:
+                    row["moments_err"] = compare_one.moments_err
+                if compare_one.tol_share is not None:
+                    row["tol_share"] = compare_one.tol_share
                 if as_run:  # the path's dtype: weight by its call count
                     t_b, t_o = bound(name, plain_args(name, args))
                     row.update(bytes_ms=t_b, ops_ms=t_o, bound_ms=max(t_b, t_o))
@@ -597,6 +649,8 @@ def compare_kernels(shapes, launches, runs):
                         "bound_ms", "library_ms", "cudnn_bf16_ms", "per_sample_ms",
                         "vs_library", "bound_share") if k in row)
                     + (f" db_err {row['db_err']:.3g}" if "db_err" in row else "")
+                    + (f" moments_err {row['moments_err']:.3g}" if "moments_err" in row else "")
+                    + (f" tol_share {row['tol_share']:.3g}" if "tol_share" in row else "")
                     + (f" cluster {row['cluster']}" if "cluster" in row else "")
                     + (f" blocks {row['blocks']}" if "blocks" in row else ""))
         by_path = {p: dict(launches=launches[p][name], ms=t["ms"], plain_ms=t["plain_ms"],
@@ -728,6 +782,8 @@ def profile_run(fn, label, what) -> dict:
                  for e in events if e.count and "Backward" in e.key
                  and any(f in e.key for f in ("Conv3x3Fn", "GroupNormSiLU"))}
     conv_bwd_ops = ops_under(prof.events(), "Conv3x3FnBackward")
+    norm_bwd_ops = {node: dict(ops_under(prof.events(), node))
+                    for node in ("AdaGroupNormSiLUBackward", "GroupNormSiLUBackward")}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / f"chip_smoke_profile_{label}.txt").write_text(
         events.table(sort_by="self_device_time_total", row_limit=40))
@@ -742,6 +798,7 @@ def profile_run(fn, label, what) -> dict:
         log(f"[profile]   {k}: {v['calls']} calls, {v['cpu_us']:.1f} µs of CPU per call")
     return dict(busy_ms=busy_ms, wall_ms=wall_ms, launches=launches, functions=functions,
                 annotation_spans_ms=spans, conv_bwd_ops=dict(conv_bwd_ops),
+                norm_bwd_ops=norm_bwd_ops,
                 top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in kernels[:12]])
 
 
@@ -783,6 +840,24 @@ def check_conv_backward(profile: dict, dgrad_s1: float, what: str) -> None:
         check(ops.get(op, 0) == 0, f"{what}: {op} ran under the conv backward")
     log(f"[profile]   under Conv3x3FnBackward: {ops.get('aten::flip', 0)} flips (one per "
         f"stride-1 data gradient), no bias sum, no zero interleave")
+
+
+def norm_bwd_removed_launches(launches: dict, shapes: dict, steps: int) -> float:
+    """The kernel launches per train step that the norm backwards no longer make: K2's
+    second launch (the fixed-order sum of its blocks' partials) per call, and per call of
+    either whose affine or FiLM rows are not f32 the cast of its f32 gradient to them."""
+    casts = sum(n for name in ("adagn_silu_bwd", "groupnorm_silu_bwd")
+                for sig, n in shapes[name].items() if sig[-1] != "torch.float32")
+    return (launches["groupnorm_silu_bwd"] + casts) / steps
+
+
+def check_norm_backward(profile: dict, what: str) -> None:
+    """Under the norm backwards' autograd nodes no cast and no sum: the kernel's one
+    launch gives the gradient of the affine or of the FiLM rows in their dtype."""
+    for node, ops in profile["norm_bwd_ops"].items():
+        for op in ("aten::to", "aten::_to_copy", "aten::sum"):
+            check(ops.get(op, 0) == 0, f"{what}: {op} ran under {node}")
+    log("[profile]   under the norm backwards' nodes: no cast and no sum")
 
 
 def drive(engine, st, pool, gen, label, smi):
@@ -988,6 +1063,13 @@ def ac_step_phase(engine, agent, st, pool, gen, smi):
     log_unprofiled_idle(profile, secs * 1e3, "AC step")
     check(launches["conv3x3_dgrad_s2"] == 0, "AC step: a stride-2 data gradient ran")
     check_conv_backward(profile, launches["conv3x3_dgrad"] / (1 + AC_STEPS), "AC step")
+    check_norm_backward(profile, "AC step")
+    removed = norm_bwd_removed_launches(launches, shapes, 1 + AC_STEPS)
+    most = AC_LAUNCH_CALLS_BEFORE - removed
+    check(profile["launches"] <= most, f"AC step: {profile['launches']} kernel launch calls, "
+          f"more than {most:g}: {AC_LAUNCH_CALLS_BEFORE} less the norm backwards' removed")
+    log(f"[profile]   {profile['launches']} kernel launch calls per AC step: at most {most:g} "
+        f"({AC_LAUNCH_CALLS_BEFORE} less {removed:g} K2 sums and casts)")
     syncs = sync_points(lambda: step(state, st, pool, generator=gen))
     log(f"[sync] AC step: {sum(syncs.values())} host-device synchronisations {syncs}")
     return st, pool, shapes, dict(step_ms=secs * 1e3, fps=fps, peak_memory_bytes=peak,
@@ -1142,6 +1224,8 @@ def host_costs() -> dict:
     x, dy, w = rnd(2, 16, 16, 64), rnd(2, 16, 16, 64), rnd(3, 3, 64, 64)
     dy2, ss = rnd(2, 8, 8, 64), rnd(2, 128)
     sc, bi = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    _, mom_gn = ops.groupnorm_silu_with_moments(x, sc, bi, 2)
+    _, mom_ada = ops.adagn_silu_with_moments(x, ss, 2)
     pieces = {
         "flip_kernel": lambda: flip_kernel(w),
         "conv3x3_dgrad": lambda: ops.conv3x3_dgrad(dy, w),
@@ -1150,8 +1234,8 @@ def host_costs() -> dict:
         "conv3x3_wgrad with the bias gradient": lambda: ops.conv3x3_wgrad(x, dy, 1, True),
         "conv3x3_wgrad at stride 2 with the bias gradient":
             lambda: ops.conv3x3_wgrad(x, dy2, 2, True),
-        "groupnorm_silu_bwd": lambda: ops.groupnorm_silu_bwd(x, dy, sc, bi, 2),
-        "adagn_silu_bwd": lambda: ops.adagn_silu_bwd(x, dy, ss, 2),
+        "groupnorm_silu_bwd": lambda: ops.groupnorm_silu_bwd(x, dy, sc, bi, 2, True, mom_gn),
+        "adagn_silu_bwd": lambda: ops.adagn_silu_bwd(x, dy, ss, 2, True, mom_ada),
     }
     out = {}
     for k, fn in pieces.items():
@@ -1242,12 +1326,14 @@ def denoiser_step_phase(agent, smi):
                           "denoiser step")
     log_unprofiled_idle(profile, secs * 1e3, "denoiser step")
     check_conv_backward(profile, per_step["conv3x3_dgrad"], "denoiser step")
-    most = DENOISER_LAUNCH_CALLS_BEFORE - removed_launch_calls(net, windows)
+    check_norm_backward(profile, "denoiser step")
+    norm_removed = norm_bwd_removed_launches(launches, shapes, steps)
+    most = DENOISER_LAUNCH_CALLS_BEFORE - removed_launch_calls(net, windows) - norm_removed
     check(profile["launches"] <= most, f"denoiser step: {profile['launches']} kernel launch "
-          f"calls, more than {most}: {DENOISER_LAUNCH_CALLS_BEFORE} less the launches removed")
+          f"calls, more than {most:g}: {DENOISER_LAUNCH_CALLS_BEFORE} less the launches removed")
     log(f"[profile]   {profile['launches']} kernel launch calls per denoiser step: at most "
-        f"{most} ({DENOISER_LAUNCH_CALLS_BEFORE} less the bias sums, interleaves and "
-        f"stride-2 flips)")
+        f"{most:g} ({DENOISER_LAUNCH_CALLS_BEFORE} less the bias sums, interleaves and "
+        f"stride-2 flips, and {norm_removed:g} K2 sums and casts)")
     syncs = sync_points(lambda: step(state, batch, generator=dgen))
     log(f"[sync] denoiser step: {sum(syncs.values())} host-device synchronisations {syncs}")
     # every parameter leaf receives a finite gradient (checked outside the counted run)

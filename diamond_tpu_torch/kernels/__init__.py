@@ -29,10 +29,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _SIGNATURES = {
-    # x, scale_shift, aff_dtype, y, silu, plan (ops/norm_plan.py), stream
-    "adagn_silu_fwd": (_P, _P, _I, _P, _I, _P, _P),
-    # x, scale, bias, aff_dtype, y, silu, plan, stream
-    "groupnorm_silu_fwd": (_P, _P, _P, _I, _P, _I, _P, _P),
+    # x, scale_shift, aff_dtype, y, moments (or null), silu, plan (ops/norm_plan.py), stream
+    "adagn_silu_fwd": (_P, _P, _I, _P, _P, _I, _P, _P),
+    # x, scale, bias, aff_dtype, y, moments (or null), silu, plan, stream
+    "groupnorm_silu_fwd": (_P, _P, _P, _I, _P, _P, _I, _P, _P),
     # x, w, bias, y, plan (ops/conv_plan.py), stream
     "conv3x3_bf16_fwd": (_P, _P, _P, _P, _P, _P),
     # x, w, bias, y, B, H, W, Cin, Cout, stride, stream
@@ -45,10 +45,11 @@ _SIGNATURES = {
     "groupnorm_silu_q8_fwd": (_P, _P, _P, _I, _P, _P, _P, _P),
     # x, x_dtype, act_max, w_k, w_scale, sample_scale, bias, y, out_dtype, plan, stream
     "conv3x3_q8_fwd": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P),
-    # x, dy, scale, bias, aff_dtype, dx, part, dsb, silu, plan (norm_plan.bwd_plan), stream
-    "groupnorm_silu_bwd": (_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P),
-    # x, dy, scale_shift, aff_dtype, dx, dss, silu, plan (norm_plan.bwd_plan), stream
-    "adagn_silu_bwd": (_P, _P, _P, _I, _P, _P, _I, _P, _P),
+    # x, dy, moments, scale, bias, aff_dtype, dx, dsb, rows, ticket, silu,
+    # plan (norm_plan.bwd_plan), stream
+    "groupnorm_silu_bwd": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P),
+    # x, dy, moments, scale_shift, aff_dtype, dx, dss, silu, plan (norm_plan.bwd_plan), stream
+    "adagn_silu_bwd": (_P, _P, _P, _P, _I, _P, _P, _I, _P, _P),
     # x, dy, part, pdb, dw, db, plan (conv_plan.wgrad_plan), stream
     "conv3x3_wgrad_bf16": (_P, _P, _P, _P, _P, _P, _P, _P),
     # x, dy, part, pdb, dw, db, B, H, W, Cin, Cout, stride, splits, pixels per split, stream
@@ -57,11 +58,9 @@ _SIGNATURES = {
     "conv3x3_dgrad_s2_bf16": (_P, _P, _P, _P, _P),
     # dy, w, dx, B, H, W, Cin, Cout, stream
     "conv3x3_dgrad_s2_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # plan: the clusters of the norm kernels the card can run at once (K1/K2, K4 static,
-    # the backward: K2's, or K1's where the int is 1)
+    # plan: the clusters of the norm kernels the card can run at once (K1/K2, K4 static)
     "gn_max_clusters": (_P,),
     "gn_q8_max_clusters": (_P,),
-    "gn_bwd_max_clusters": (_P, _I),
 }
 
 _lib: Optional[ctypes.CDLL] = None

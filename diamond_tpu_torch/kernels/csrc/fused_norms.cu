@@ -18,21 +18,23 @@
 #include "gn_common.cuh"
 
 // scale_shift: (B, 2C), FiLM scale then shift; aff_dtype 0 float32, 1 bfloat16. x's dtype
-// is the plan's (elem_bytes).
+// is the plan's (elem_bytes). moments: null, or (B, G, 2) f32 for each group's mean and
+// 1/std (what the backward reads).
 extern "C" int adagn_silu_fwd(const void* x, const void* scale_shift, int aff_dtype, void* y,
-                              int silu, const int* plan, void* stream) {
+                              void* moments, int silu, const int* plan, void* stream) {
   const int C = plan[2];
   const size_t es = aff_dtype ? 2 : 4;
   const GnArgs a{x, y, scale_shift, static_cast<const char*>(scale_shift) + C * es, 2 * (int64_t)C,
-                 aff_dtype, 1, silu, nullptr};
+                 aff_dtype, 1, silu, nullptr, static_cast<float*>(moments)};
   return dispatch_gn<false>(a, plan, stream);
 }
 
-// scale, bias: (C,), shared by every sample, both of aff_dtype.
+// scale, bias: (C,), shared by every sample, both of aff_dtype; moments as above.
 extern "C" int groupnorm_silu_fwd(const void* x, const void* scale, const void* bias,
-                                  int aff_dtype, void* y, int silu, const int* plan,
-                                  void* stream) {
-  const GnArgs a{x, y, scale, bias, 0, aff_dtype, 0, silu, nullptr};
+                                  int aff_dtype, void* y, void* moments, int silu,
+                                  const int* plan, void* stream) {
+  const GnArgs a{x, y, scale, bias, 0, aff_dtype, 0, silu, nullptr,
+                 static_cast<float*>(moments)};
   return dispatch_gn<false>(a, plan, stream);
 }
 

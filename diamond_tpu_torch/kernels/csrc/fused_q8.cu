@@ -177,7 +177,7 @@ extern "C" int adagn_silu_q8_fwd(const void* x, const void* scale_shift, int aff
   const int C = plan[2];
   const size_t es = aff_dtype ? 2 : 4;
   const GnArgs a{x, q, scale_shift, static_cast<const char*>(scale_shift) + C * es, 2 * (int64_t)C,
-                 aff_dtype, 1, 1, static_cast<const float*>(act_max)};
+                 aff_dtype, 1, 1, static_cast<const float*>(act_max), nullptr};
   return dispatch_gn<true>(a, plan, stream);
 }
 
@@ -185,7 +185,8 @@ extern "C" int adagn_silu_q8_fwd(const void* x, const void* scale_shift, int aff
 extern "C" int groupnorm_silu_q8_fwd(const void* x, const void* scale, const void* bias,
                                      int aff_dtype, const void* act_max, void* q,
                                      const int* plan, void* stream) {
-  const GnArgs a{x, q, scale, bias, 0, aff_dtype, 0, 1, static_cast<const float*>(act_max)};
+  const GnArgs a{x, q, scale, bias, 0, aff_dtype, 0, 1, static_cast<const float*>(act_max),
+                 nullptr};
   return dispatch_gn<true>(a, plan, stream);
 }
 

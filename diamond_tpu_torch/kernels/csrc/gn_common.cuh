@@ -40,6 +40,9 @@
 //     only after its statistics, keeps a store from reaching a barrier before it exists;
 //     a block leaves only after receiving every store meant for it, so no block's shared
 //     memory is written after it has gone.
+//   * Where a backward follows (K1/K2 under autograd), rank 0 of each cluster also writes
+//     the sample's mean and 1/std per group (GnArgs::moments), which the backward
+//     (gn_bwd.cu) reads instead of recomputing them; the rollout passes null.
 //   * Apply from shared memory: normalize, affine, SiLU, then 16-byte stores (bf16/f32)
 //     or 4/8-byte int8 stores, two vectors in flight per thread. The FiLM/affine rows are
 //     read as f32 or bf16 as they come, loaded while the copies fly; K4's 1/s_c is
@@ -185,6 +188,8 @@ struct GnArgs {
   int one_plus;
   int silu;
   const float* act_max;     // K4: (C,) calibrated maxima of the consuming conv's input
+  float* moments;           // (B, G, 2) f32: each group's mean and 1/std, for the backward
+                            // (gn_bwd.cu); null where no backward follows
 };
 
 // ---------------------------------------------------------------------------
@@ -464,8 +469,11 @@ gn_cluster_kernel(const GnArgs a, const NormPlan p) {
     const float count = static_cast<float>((int64_t)p.HW * gs);
     const float mean = __fdiv_rn(s, count);
     const float var = __fsub_rn(__fdiv_rn(q, count), __fmul_rn(mean, mean));
+    const float inv = rsqrtf(__fadd_rn(var, kGnEps));
     s_mean[t] = mean;
-    s_inv[t] = rsqrtf(__fadd_rn(var, kGnEps));
+    s_inv[t] = inv;
+    if (a.moments != nullptr && rank == 0)
+      reinterpret_cast<float2*>(a.moments)[b * G + t] = make_float2(mean, inv);
   }
   __syncthreads();
 

@@ -33,7 +33,7 @@ import torch
 
 from .. import kernels
 from .conv3x3_q8 import conv3x3_int8, quantize_static, refuse_grad, true_div
-from .fused_norms import (GN_EPS, _group_moments, adagn_silu_plain, affine_rows,
+from .fused_norms import (GN_EPS, _per_channel, adagn_silu_plain, affine_rows, group_moments,
                           groupnorm_silu_plain, launch_plan)
 
 _MAX_THREADS = 256   # kernels/csrc/fused_q8.cu kSpanThreads
@@ -116,7 +116,7 @@ def group_stats_channels(x: torch.Tensor, num_groups: int, eps: float = GN_EPS):
     """(mean_c, inv_c), each (B, C): affine-free GroupNorm statistics (the norms' own,
     single-pass f32 moments per channel, then per group), broadcast to channels."""
     n, _, _, c = x.shape
-    _, mean_c, inv_c = _group_moments(x, num_groups, eps)
+    mean_c, inv_c = _per_channel(group_moments(x, num_groups, eps), c)
     return mean_c.reshape(n, c), inv_c.reshape(n, c)
 
 

@@ -24,11 +24,26 @@ and a chunk is a whole number of steps of threads * V elements, so each thread k
 same V channels. Besides x, a block's dynamic shared memory holds C floats (K4's 1/s_c)
 and the n ranks' G partial moments.
 
-The backward kernels of K2 and K1 (one template, kernels/csrc/gn_bwd.cu) run on their
-forward's plan with x and dy both in shared memory (``bwd_plan``): the same clusters and
-pixel spans, so that they recompute the forward's moments bit for bit. K1's backward
-sums each sample's FiLM gradient inside its cluster, in the per-thread sums' space, so
-it needs no shared memory beyond K2's.
+The backward kernels of K2 and K1 (one template, kernels/csrc/gn_bwd.cu) have a plan of
+their own (``bwd_plan``): they read the moments the forward saved, so nothing ties them to
+the forward's clusters. Its choices, each timed against its alternatives on one H100 SXM
+(NVIDIA H100 80GB HBM3, 700 W; scripts/time_norm_grads.py --explore, bf16, B = 32, µs
+per call; PERF.md has the tables):
+  * n = 1, 2, 4 or 8 blocks per sample (portable clusters only), the smallest that
+    leaves a block at most BWD_BLOCK_BYTES of x and dy. At 64x64 n = 8 (K1 64x64x64:
+    28.0 against 37.7 at n = 4 and 59.8 at n = 2); at 8x8 and 16x16 the choice moves
+    little (K1 8x8x64: 4.7-4.8 for n = 1 to 8; K2 16x16x32: 7.6-7.9), the cluster
+    exchange costing what the smaller spans save.
+  * A block's shared memory is that of BWD_BLOCKS_PER_SM = 4 blocks an SM (their
+    registers fit three): x and dy of at most ``rpx`` pixels, the rest of the span read
+    from device memory (kept in L2 by the kernel's cache policies). At 64x64 more on
+    chip is slower, not faster (K1 64x64x64: 28.0 with 128 of each block's 512 pixels on
+    chip, 29.2 with 192, 37.2 with 352, 35.5 with all 512, where one block fills an SM
+    and 256 blocks take two waves; 64x64x128: 62.4 with 64 of 512, 62.9 with 96); at
+    32x32x64 all of a span fits (10.4).
+  * ``threads``: as many as the span has vectors, up to 256; a chunk of ``cpx`` pixels
+    of both x and dy per bulk copy (CHUNK_BYTES each: chunks of a quarter to twice that
+    size moved no time by more than 0.9).
 
 Plans are pure functions of the call's shape and dtype, cached, and computed on the
 host, so the CPU tests hold them to the card's limits. The kernel checks the plan
@@ -53,6 +68,13 @@ MAX_CHUNKS = 8           # gn_common.cuh kMaxChunks: barriers per block
 BLOCK_BYTES = 16 * 1024  # a sample is split until a block holds at most this much x ...
 WIDE_BYTES = 64 * 1024   # ... or, at 8 blocks, at most this much; beyond it, 16 blocks
 CHUNK_BYTES = 16 * 1024  # the size of one bulk copy, in whole steps
+# The backward (kernels/csrc/gn_bwd.cu): its own plan, on portable clusters
+SMEM_SM = 233_472        # shared memory one SM's blocks share (228 KB) ...
+SMEM_RESERVED = 1_024    # ... of which the card keeps 1 KB per block
+BWD_STATIC = 3_072       # gn_bwd.cu's static shared memory, at most
+BWD_CLUSTER = 8          # blocks per sample, at most (a portable cluster)
+BWD_BLOCKS_PER_SM = 4    # blocks whose shared memory fits one SM
+BWD_BLOCK_BYTES = 16 * 1024  # x and dy per block, at most, where 8 blocks suffice
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -141,35 +163,74 @@ def norm_plan(b: int, hw: int, c: int, g: int, elem_bytes: int) -> NormPlan:
     return plan_for(b, hw, c, g, elem_bytes, n)
 
 
-def bwd_extra(p: NormPlan) -> int:
-    """The backward's dynamic shared memory besides x and dy: both rounds' partials of
-    every rank, and each thread's per-channel sums (gn_bwd.cu ``gn_bwd_smem``)."""
-    return 16 * p.n * p.G + 8 * p.threads * p.vec
+def bwd_budget(blocks_per_sm: int) -> int:
+    """The dynamic shared memory a backward block may take so that ``blocks_per_sm`` of
+    them share an SM (each also holds its static part and the card's 1 KB)."""
+    return min(SMEM_DYNAMIC, (SMEM_SM // blocks_per_sm - SMEM_RESERVED - BWD_STATIC) // 128 * 128)
+
+
+def bwd_smem(p: NormPlan) -> int:
+    """gn_bwd.cu ``gn_bwd_smem``: x's and dy's on-chip spans, the threads' per-channel
+    sums ([2][threads][V] f32), the n ranks' G partials, and where n > 1 the n ranks'
+    sums of the channels the block finishes (c with c % n == rank, of the 2C)."""
+    recv = 4 * p.n * _cdiv(2 * p.C, p.n) if p.n > 1 else 0
+    return (_cdiv(2 * p.rpx * p.C * p.elem_bytes, 16) * 16 + 8 * p.threads * p.vec
+            + 8 * p.n * p.G + _cdiv(recv, 16) * 16)
 
 
 @functools.lru_cache(maxsize=None)
-def bwd_plan(p: NormPlan) -> NormPlan:
-    """The K2 and K1 backwards' plan (kernels/csrc/gn_bwd.cu) for the forward plan ``p``: the
-    same clusters, blocks, threads and pixel spans, so that it recomputes the forward's
-    moments bit for bit, with x and dy both in shared memory: ``rpx`` pixels of each
-    (all of the span where they fit), in ``chunks`` copies of ``cpx`` pixels of both."""
-    pix = p.C * p.elem_bytes
-    step_px = p.step_px
-    fit = (SMEM_DYNAMIC - bwd_extra(p)) // (2 * pix) // step_px * step_px
-    if fit < step_px:
-        raise ValueError(f"fused GroupNorm backward: C={p.C} does not fit shared memory")
-    rpx = min(p.ppb, fit)
-    cpx = max(1, _cdiv(CHUNK_BYTES, pix * step_px)) * step_px
+def bwd_plan_for(b: int, hw: int, c: int, g: int, elem_bytes: int, n: int,
+                 blocks_per_sm: int) -> NormPlan:
+    """The backward plan of one call with ``n`` blocks per sample (at most 8) and shared
+    memory for ``blocks_per_sm`` blocks on an SM: ``rpx`` pixels of x and dy on chip
+    (all of the span where they fit), in ``chunks`` copies of ``cpx`` pixels of both;
+    as many threads as the span has vectors, up to 256."""
+    check_shape(c, g, elem_bytes)
+    vec = 16 // elem_bytes
+    cv = c // vec
+    n = max(1, min(n, hw, BWD_CLUSTER))
+    ppb = _cdiv(hw, n)
+    n = _cdiv(hw, ppb)  # no block without pixels
+    per_px = max(min(MAX_THREADS // cv, ppb), _cdiv(32, cv))  # pixels of one step
+    threads = per_px * cv
+    if threads > MAX_THREADS:
+        raise ValueError(f"fused GroupNorm backward: C={c}, groups={g} need {threads} threads")
+    pix = c * elem_bytes
+    budget = (bwd_budget(blocks_per_sm) - 8 * threads * vec - 8 * n * g
+              - 4 * n * _cdiv(2 * c, n) - 16)
+    fit = budget // (2 * pix)
+    if fit >= per_px:
+        fit = fit // per_px * per_px  # whole steps on chip
+    if fit < 1:
+        raise ValueError(f"fused GroupNorm backward: C={c} does not fit {blocks_per_sm} "
+                         "blocks per SM")
+    rpx = min(ppb, fit)
+    cpx = max(1, _cdiv(CHUNK_BYTES, pix * per_px)) * per_px
     if _cdiv(rpx, cpx) > MAX_CHUNKS:
-        cpx = _cdiv(_cdiv(rpx, MAX_CHUNKS), step_px) * step_px
-    return replace(p, rpx=rpx, cpx=cpx, chunks=_cdiv(rpx, cpx),
-                   smem=2 * rpx * pix + bwd_extra(p), resident=int(rpx == p.ppb))
+        cpx = _cdiv(_cdiv(rpx, MAX_CHUNKS), per_px) * per_px
+    p = NormPlan(B=b, HW=hw, C=c, G=g, elem_bytes=elem_bytes, vec=vec, threads=threads, n=n,
+                 ppb=ppb, rpx=rpx, cpx=cpx, chunks=_cdiv(rpx, cpx), smem=0,
+                 resident=int(rpx == ppb))
+    return replace(p, smem=bwd_smem(p))
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(b: int, hw: int, c: int, g: int, elem_bytes: int) -> NormPlan:
+    """The K2 and K1 backwards' plan (kernels/csrc/gn_bwd.cu) of a call on x (b, H, W, c)
+    with H * W = hw: n = 1, 2, 4 or 8 blocks per sample, the smallest that leaves a block
+    at most BWD_BLOCK_BYTES of x and dy, and the shared memory of BWD_BLOCKS_PER_SM blocks
+    on an SM each."""
+    sample = 2 * hw * c * elem_bytes
+    n = 1
+    while n < BWD_CLUSTER and sample > n * BWD_BLOCK_BYTES:
+        n *= 2
+    return bwd_plan_for(b, hw, c, g, elem_bytes, n, BWD_BLOCKS_PER_SM)
 
 
 def bwd_plan_ok(p: NormPlan) -> bool:
-    """gn_bwd.cu ``norm_bwd_plan_ok``: the forward's layout, with x and dy on chip."""
-    return (_layout_ok(p)
-            and 2 * p.rpx * p.C * p.elem_bytes + bwd_extra(p) <= p.smem <= SMEM_DYNAMIC)
+    """gn_bwd.cu ``norm_bwd_plan_ok``: a backward plan the kernel runs."""
+    return (_layout_ok(p) and p.n <= BWD_CLUSTER and p.threads >= p.G
+            and p.smem == bwd_smem(p) and p.smem <= SMEM_DYNAMIC)
 
 
 def _layout_ok(p: NormPlan) -> bool:

@@ -96,7 +96,7 @@ def main() -> int:
 
             def k1(silu=1, p=p, lib=lib):
                 kernels.check(lib.adagn_silu_fwd(
-                    x.data_ptr(), ss.data_ptr(), 1, y.data_ptr(), silu, p.c_ints,
+                    x.data_ptr(), ss.data_ptr(), 1, y.data_ptr(), None, silu, p.c_ints,
                     torch.cuda.current_stream().cuda_stream), "adagn_silu")
 
             def k4(p=p, lib=lib):

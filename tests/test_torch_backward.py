@@ -5,7 +5,11 @@ tests (tests/test_torch_cuda.py) take as given.
 
   * K2's backward (ops/fused_norms.py ``groupnorm_silu_bwd``) against ``jax.vjp`` of the
     JAX package's ``_gn_silu_ref`` (its custom_vjp backward), f32, within 1e-5 of the
-    largest |value| (the same formula, sums in another order);
+    largest |value| (the same formula, sums in another order), both recomputing the
+    moments and given the forward's; in bf16 within 1/64 (one rounding on each side);
+  * the plain forward's moments (what the forward kernels save for the backward)
+    against the JAX reference's mean and rsqrt(var + eps), f32, within 1e-6 of max(1,
+    the largest |value|);
   * K3's data and weight gradients (ops/conv3x3.py) against ``jax.vjp`` of the
     ``lax.conv_general_dilated`` the JAX blocks differentiate, f32, within 1e-5;
   * ``GroupNormSiLU`` and ``Conv3x3Fn`` on CPU tensors (their forward and backward are
@@ -19,13 +23,16 @@ import pytest
 import torch
 
 from diamond_tpu.ops.fused_norms import _gn_silu_ref
+from diamond_tpu.ops.fused_norms import GN_EPS
 from diamond_tpu_torch.ops import (conv3x3_dgrad_plain, conv3x3_plain, conv3x3_wgrad_plain,
-                                   groupnorm_silu_bwd_plain, groupnorm_silu_plain)
+                                   group_moments, groupnorm_silu_bwd_plain,
+                                   groupnorm_silu_plain, groupnorm_silu_with_moments)
 from diamond_tpu_torch.ops.conv3x3 import Conv3x3Fn, flip_kernel
 from diamond_tpu_torch.ops.conv_plan import (SMEM_BLOCK, WGRAD_WGS, wgrad_f32_split, wgrad_plan,
                                              wgrad_plan_ok)
 from diamond_tpu_torch.ops.fused_norms import GroupNormSiLU
-from diamond_tpu_torch.ops.norm_plan import bwd_plan, bwd_plan_ok, norm_plan, plan_for
+from diamond_tpu_torch.ops import norm_plan as npl
+from diamond_tpu_torch.ops.norm_plan import bwd_plan, bwd_plan_for, bwd_plan_ok
 
 from torch_port_util import t
 
@@ -57,6 +64,66 @@ def test_groupnorm_silu_bwd_plain_matches_jax_vjp(b, h, w, c, g, silu):
     got = groupnorm_silu_bwd_plain(t(x), t(dy), t(sc), t(bi), g, silu)
     for a, r in zip(got, ref):
         _rel_close(a.numpy(), r, 1e-5)
+
+
+def _jax_moments(x, g):
+    """The JAX package's group statistics (``_gn_silu_ref``): (B, G, 2) mean and
+    rsqrt(var + eps) of x (B, H, W, C), f32."""
+    b, h, w, c = x.shape
+    xg = jnp.asarray(x, jnp.float32).reshape(b, h, w, g, c // g)
+    mean = xg.mean(axis=(1, 2, 4))
+    var = (xg * xg).mean(axis=(1, 2, 4)) - mean * mean
+    return np.stack([np.asarray(mean), np.asarray(jax.lax.rsqrt(var + GN_EPS))], axis=-1)
+
+
+@pytest.mark.parametrize("b,h,w,c,g", [(2, 8, 8, 64, 2), (3, 5, 7, 32, 1), (1, 4, 4, 96, 3),
+                                       (4, 6, 6, 128, 4)])
+def test_plain_forward_moments_match_the_jax_reference(b, h, w, c, g):
+    """The moments the plain forward returns (the forward kernels' saved output) equal the
+    JAX reference's mean and rsqrt(var + eps) per sample and group, f32, within 1e-6 of
+    max(1, the largest |value|) (groups of at most 2,048 values, summed in another
+    order), and are the ones it normalized with."""
+    rng = np.random.default_rng(4)
+    x = (rng.normal(size=(b, h, w, c)) * 2 + 0.5).astype(np.float32)
+    sc = (1 + 0.1 * rng.normal(size=c)).astype(np.float32)
+    bi = (0.1 * rng.normal(size=c)).astype(np.float32)
+    y, mom = groupnorm_silu_plain(t(x), t(sc), t(bi), g, True, return_moments=True)
+    assert mom.shape == (b, g, 2) and mom.dtype == torch.float32
+    ref = _jax_moments(x, g)
+    assert np.abs(mom.numpy() - ref).max() <= 1e-6 * max(1.0, np.abs(ref).max())
+    assert torch.equal(y, groupnorm_silu_plain(t(x), t(sc), t(bi), g, True))
+    y_m, mom_m = groupnorm_silu_with_moments(t(x), t(sc), t(bi), g)  # a CPU tensor: plain
+    assert torch.equal(y_m, y) and torch.equal(mom_m, group_moments(t(x), g))
+
+
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,w,c,g", [(2, 8, 8, 64, 2), (3, 5, 7, 32, 1), (1, 4, 4, 96, 3)])
+def test_groupnorm_silu_bwd_plain_given_moments_matches_recompute_and_jax_vjp(b, h, w, c, g,
+                                                                              dtype, silu):
+    """K2's plain backward given the forward's saved moments equals the form that
+    recomputes them (the same numbers, so bit for bit) and jax.vjp of ``_gn_silu_ref``:
+    f32 within 1e-5 of the largest |value|; bf16 x and dy within 1/64 (both sides
+    compute in f32 from the same bf16 values and round once)."""
+    rng = np.random.default_rng(5)
+    x = (rng.normal(size=(b, h, w, c)) * 2 + 0.5).astype(np.float32)
+    sc = (1 + 0.1 * rng.normal(size=c)).astype(np.float32)
+    bi = (0.1 * rng.normal(size=c)).astype(np.float32)
+    dy = rng.normal(size=(b, h, w, c)).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    xj, dyj = jnp.asarray(x, jdt), jnp.asarray(dy, jdt)
+    _, vjp = jax.vjp(lambda *a: _gn_silu_ref(*a, g, silu), xj, jnp.asarray(sc), jnp.asarray(bi))
+    ref = vjp(dyj)
+    xt = torch.from_numpy(np.asarray(xj, np.float32)).to(getattr(torch, dtype))
+    dyt = torch.from_numpy(np.asarray(dyj, np.float32)).to(getattr(torch, dtype))
+    _, mom = groupnorm_silu_plain(xt, t(sc), t(bi), g, silu, return_moments=True)
+    got = groupnorm_silu_bwd_plain(xt, dyt, t(sc), t(bi), g, silu, mom)
+    again = groupnorm_silu_bwd_plain(xt, dyt, t(sc), t(bi), g, silu)
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
+    assert got[0].dtype == xt.dtype and got[1].dtype == got[2].dtype == torch.float32
+    for a, r in zip(got, ref):
+        _rel_close(a.float().numpy(), np.asarray(r, np.float32),
+                   1e-5 if dtype == "float32" else 1 / 64)
 
 
 @pytest.mark.parametrize("b,h,w,cin,cout", [(2, 8, 8, 16, 8), (1, 5, 7, 3, 6), (2, 9, 9, 6, 3)])
@@ -132,33 +199,47 @@ def _norm_cases():
 
 @pytest.mark.parametrize("b,h,c,es", list(_norm_cases()))
 def test_bwd_plan_is_the_forward_layout_with_dy_on_chip(b, h, c, es):
-    """The backward runs on its forward's clusters, blocks, threads and pixel spans (so
-    it recomputes the same moments), fits the card with x and dy in shared memory, and
-    agrees with the kernel's check; every actor-critic shape keeps both resident."""
-    fwd = norm_plan(b, h * h, c, max(1, c // 32), es)
-    p = bwd_plan(fwd)
-    assert bwd_plan_ok(p)
-    for f in ("B", "HW", "C", "G", "elem_bytes", "vec", "threads", "n", "ppb"):
-        assert getattr(p, f) == getattr(fwd, f), f
+    """The backward's own plan keeps the forward's layout rules (whole pixels per block,
+    each thread on its V channels, chunks of whole steps: ``_layout_ok``) with x and dy
+    on chip: ``rpx`` pixels of each, the threads' per-channel sums, the ranks' partials
+    and the channel sums sent to each rank in the shared memory of four blocks an SM, on
+    a portable cluster; it agrees with the kernel's check. In bf16 every shape up to
+    32x32 keeps x and dy resident."""
+    p = bwd_plan(b, h * h, c, max(1, c // 32), es)
+    assert bwd_plan_ok(p) and npl._layout_ok(p)
+    assert 1 <= p.n <= 8 and p.blocks == b * p.n and (p.n - 1) * p.ppb < h * h <= p.n * p.ppb
+    assert p.threads <= 256 and p.threads % (c // p.vec) == 0 and p.threads >= p.G
     assert p.rpx % p.step_px == 0 or p.rpx == p.ppb
-    assert 2 * p.rpx * c * es <= p.smem
-    if (b, h, c) in AC_NORMS:
-        assert p.resident and p.n <= 8
+    assert 2 * p.rpx * c * es + 8 * p.threads * p.vec + 8 * p.n * p.G <= p.smem
+    assert p.smem <= npl.bwd_budget(npl.BWD_BLOCKS_PER_SM)
+    per_block = p.smem + npl.BWD_STATIC + npl.SMEM_RESERVED
+    assert npl.BWD_BLOCKS_PER_SM * per_block <= npl.SMEM_SM
+    if h <= 32 and es == 2:
+        assert p.resident
     if not p.resident:  # the rest of the span is read from device memory
         assert p.rpx < p.ppb
-    assert list(p.c_ints)[:9] == list(fwd.c_ints)[:9]
+    assert bwd_plan(b, h * h, c, max(1, c // 32), es) is p  # cached: shape and dtype only
 
 
 def test_bwd_plan_of_a_spilling_sample_and_a_refused_one():
-    """f32 64x64x256 keeps part of each block's span on chip; a plan whose shared
-    memory disagrees with its layout is refused."""
-    p = bwd_plan(norm_plan(1, 64 * 64, 256, 8, 4))
-    assert not p.resident and bwd_plan_ok(p)
+    """f32 64x64x256 keeps part of each block's span on chip; a plan the kernel cannot
+    run, or whose shared memory disagrees with its layout, is refused, and so is a
+    shape without a plan."""
+    p = bwd_plan(1, 64 * 64, 256, 8, 4)
+    assert not p.resident and bwd_plan_ok(p) and p.rpx < p.ppb
     from dataclasses import replace
-    assert not bwd_plan_ok(replace(p, smem=p.smem - 16))
-    assert not bwd_plan_ok(replace(p, rpx=p.ppb))
-    small = bwd_plan(plan_for(32, 64, 64, 2, 2, 1))
+    for bad in (dict(smem=p.smem - 16), dict(smem=p.smem + 16), dict(rpx=p.ppb),
+                dict(n=16, ppb=256), dict(threads=512), dict(cpx=p.cpx + 1),
+                dict(chunks=p.chunks + 1), dict(resident=1), dict(G=65),
+                dict(smem=npl.SMEM_DYNAMIC + 16)):
+        assert not bwd_plan_ok(replace(p, **bad)), bad
+    small = bwd_plan(32, 64, 64, 2, 2)
     assert small.resident and small.n == 1 and small.chunks == 1
+    for c, g, es in [(1024, 128, 2), (36, 1, 2), (66, 1, 4), (64, 16, 2), (96, 3, 3)]:
+        with pytest.raises(ValueError):
+            bwd_plan(2, 64, c, g, es)
+    with pytest.raises(ValueError, match="does not fit"):  # eight blocks an SM at C = 2048
+        bwd_plan_for(2, 64 * 64, 2048, 64, 2, 8, 8)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,12 @@ Tolerances, each with its reason:
     formula, f32 sums in another order);
   * bf16 x (FiLM rows f32 or bf16): both sides compute in f32 from the same bf16 inputs
     and round once, so a value may differ by one bf16 ulp: within 1/64 of the largest
-    |value| (two ulps of it);
+    |value| (two ulps of it); the FiLM gradient comes in the rows' dtype, as JAX's;
+  * the plain backward given the moments the forward saved equals the form that
+    recomputes them bit for bit (the same numbers), and jax.vjp as above; the plain
+    forward's moments equal the JAX reference's mean and rsqrt(var + eps) within 1e-6 of
+    max(1, the largest |value|) (groups of at most 2,048 values, summed in another
+    order);
   * ``AdaGroupNormSiLU`` on CPU tensors (forward and backward are then the plain
     versions) against autograd of the plain forward: 1e-5 absolute (an explicit VJP
     against autograd's, both in f32);
@@ -25,13 +30,15 @@ import pytest
 import torch
 
 from diamond_tpu.ops.conv_lowering import conv3x3_lowered
-from diamond_tpu.ops.fused_norms import _adagn_silu_ref
+from diamond_tpu.ops.fused_norms import GN_EPS, _adagn_silu_ref
 from diamond_tpu.ops.fused_norms import adagn_silu as j_adagn_silu
 from diamond_tpu_torch.ops import (adagn_silu_bwd, adagn_silu_bwd_plain, adagn_silu_plain,
-                                   conv3x3_dgrad_plain, conv3x3_plain, conv3x3_wgrad_plain)
+                                   adagn_silu_with_moments, conv3x3_dgrad_plain, conv3x3_plain,
+                                   conv3x3_wgrad_plain, group_moments)
 from diamond_tpu_torch.ops.conv3x3 import Conv3x3Fn, zero_interleave
 from diamond_tpu_torch.ops.fused_norms import AdaGroupNormSiLU
-from diamond_tpu_torch.ops.norm_plan import bwd_plan, bwd_plan_ok, norm_plan
+from diamond_tpu_torch.ops import norm_plan as npl
+from diamond_tpu_torch.ops.norm_plan import bwd_plan, bwd_plan_ok
 
 from torch_port_util import t
 
@@ -87,9 +94,49 @@ def test_adagn_silu_bwd_plain_in_bf16_matches_jax_vjp(b, h, w, c, g, film_dtype)
     bf = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)  # noqa: E731
     ss_p = bf(ssj) if film_dtype == "bfloat16" else t(np.asarray(ssj))
     dx, dss = adagn_silu_bwd_plain(bf(xb), bf(dyb), ss_p, g)
-    assert dx.dtype == torch.bfloat16 and dss.dtype == torch.float32
+    assert dx.dtype == torch.bfloat16 and dss.dtype == ss_p.dtype
     _rel_close(dx.float().numpy(), np.asarray(dx_j, np.float32), 1 / 64)
     _rel_close(dss.to(ss_p.dtype).float().numpy(), np.asarray(dss_j, np.float32), 1 / 64)
+
+
+@pytest.mark.parametrize("b,h,w,c,g", K1_CASES)
+def test_adagn_plain_forward_moments_match_the_jax_reference(b, h, w, c, g):
+    """The moments K1's plain forward returns (what the K1 kernel saves) equal the JAX
+    reference's mean and rsqrt(var + eps) of ``_adagn_silu_ref``, f32."""
+    x, ss, _ = _k1_inputs(3, b, h, w, c)
+    y, mom = adagn_silu_plain(t(x), t(ss), g, return_moments=True)
+    xg = jnp.asarray(x).reshape(b, h, w, g, c // g)
+    mean = xg.mean(axis=(1, 2, 4))
+    inv = jax.lax.rsqrt((xg * xg).mean(axis=(1, 2, 4)) - mean * mean + GN_EPS)
+    ref = np.stack([np.asarray(mean), np.asarray(inv)], axis=-1)
+    assert mom.shape == (b, g, 2) and mom.dtype == torch.float32
+    assert np.abs(mom.numpy() - ref).max() <= 1e-6 * max(1.0, np.abs(ref).max())
+    assert torch.equal(y, adagn_silu_plain(t(x), t(ss), g))
+    y_m, mom_m = adagn_silu_with_moments(t(x), t(ss), g)  # a CPU tensor: the plain version
+    assert torch.equal(y_m, y) and torch.equal(mom_m, group_moments(t(x), g))
+
+
+@pytest.mark.parametrize("film_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,w,c,g", [K1_CASES[0], K1_CASES[1], K1_CASES[3]])
+def test_adagn_silu_bwd_plain_given_moments_matches_recompute_and_jax_vjp(b, h, w, c, g,
+                                                                          x_dtype, film_dtype):
+    """K1's plain backward given the saved moments: the recomputing form's bits, and
+    jax.vjp of ``_adagn_silu_ref`` within 1e-5 (f32) or 1/64 (bf16 x or rows)."""
+    x, ss, dy = _k1_inputs(4, b, h, w, c)
+    xj, dyj = jnp.asarray(x, getattr(jnp, x_dtype)), jnp.asarray(dy, getattr(jnp, x_dtype))
+    ssj = jnp.asarray(ss, getattr(jnp, film_dtype))
+    _, vjp = jax.vjp(lambda x_, s_: _adagn_silu_ref(x_, s_, g), xj, ssj)
+    ref = vjp(dyj)
+    to = lambda a, dt: torch.from_numpy(np.array(a, np.float32)).to(getattr(torch, dt))  # noqa: E731
+    xt, dyt, sst = to(xj, x_dtype), to(dyj, x_dtype), to(ssj, film_dtype)
+    _, mom = adagn_silu_plain(xt, sst, g, return_moments=True)
+    got = adagn_silu_bwd_plain(xt, dyt, sst, g, True, mom)
+    assert all(torch.equal(a, r) for a, r in zip(got, adagn_silu_bwd_plain(xt, dyt, sst, g)))
+    assert got[0].dtype == xt.dtype and got[1].dtype == sst.dtype
+    tol = 1e-5 if x_dtype == film_dtype == "float32" else 1 / 64
+    for a, r in zip(got, ref):
+        _rel_close(a.float().numpy(), np.asarray(r, np.float32), tol)
 
 
 @pytest.mark.parametrize("silu", [True, False])
@@ -111,19 +158,19 @@ def test_adagn_function_on_cpu_matches_autograd_of_the_plain_version(silu):
 @pytest.mark.parametrize("b,h,c", DENOISER_NORMS)
 @pytest.mark.parametrize("es", [2, 4])
 def test_k1_bwd_plan_at_the_denoiser_signatures(b, h, c, es):
-    """K1's backward runs on K2's backward plan over the forward's: the same clusters and
-    pixel spans. bf16 keeps x and dy of every denoiser signature on chip, 64x64x128 on
-    the 16-block plan (64 KB of each per block); f32 64x64x128 re-reads a part."""
-    fwd = norm_plan(b, h * h, c, c // 32, es)
-    p = bwd_plan(fwd)
-    assert bwd_plan_ok(p)
-    assert (p.n, p.ppb, p.threads, p.blocks) == (fwd.n, fwd.ppb, fwd.threads, fwd.blocks)
-    if es == 2:
-        assert p.resident == 1
-    if (h, c, es) == (64, 128, 2):
-        assert p.n == 16 and p.rpx * c * es == 64 * 1024
-    if (h, c, es) == (64, 128, 4):
-        assert p.resident == 0
+    """K1's backward runs on the backward's own plan: 8 blocks per sample at 64x64 and
+    32x32 (a portable cluster), fewer at 8x8 and 16x16 where a block holds at most 16 KB
+    of x and dy; bf16 keeps x and dy of every signature up to 32x32x64 on chip, 64x64
+    keeps a part (the rest is read from device memory), all in four blocks' shared
+    memory an SM."""
+    p = bwd_plan(b, h * h, c, c // 32, es)
+    assert bwd_plan_ok(p) and p.n <= 8
+    assert p.n == min(8, max(1, 2 * h * h * c * es // npl.BWD_BLOCK_BYTES))
+    assert p.smem <= npl.bwd_budget(npl.BWD_BLOCKS_PER_SM)
+    if es == 2 and (h < 32 or (h, c) == (32, 64)):
+        assert p.resident
+    if h == 64:
+        assert not p.resident and p.n == 8 and p.rpx % p.step_px == 0
 
 
 def _j_conv_s2(x, k, b):

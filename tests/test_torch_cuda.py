@@ -363,15 +363,16 @@ def _bwd_close(a, b, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_backward_kernels_match_plain_versions(dtype):
-    """K2's backward (dx, dscale, dbias) and K3's weight and data gradients against their
-    plain versions: bf16 within 1/64 of max(1, max |plain|) (one rounding to bf16 on
-    each side); f32 with TF32 off, dx within 1e-4 and dscale, dbias, dW within 1e-3 (sums
-    of up to 131k terms in another order)."""
+    """K2's backward (dx, dscale, dbias, on the moments K2's forward kernel wrote) and
+    K3's weight and data gradients against their plain versions (K2's recomputing the
+    moments): bf16 within 1/64 of max(1, max |plain|) (one rounding to bf16 on each
+    side); f32 with TF32 off, dx within 1e-4 and dscale, dbias, dW within 1e-3 (sums of
+    up to 131k terms in another order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from diamond_tpu_torch.ops import (conv3x3_dgrad, conv3x3_dgrad_plain, conv3x3_wgrad,
                                        conv3x3_wgrad_plain, groupnorm_silu_bwd,
-                                       groupnorm_silu_bwd_plain)
+                                       groupnorm_silu_bwd_plain, groupnorm_silu_with_moments)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -382,7 +383,8 @@ def test_backward_kernels_match_plain_versions(dtype):
         x, _, sc, bi = _norm_inputs(b, h, c, dt, g)
         dy = torch.randn(x.shape, device="cuda", generator=g).to(dt)
         for silu in (True, False):
-            got = groupnorm_silu_bwd(x, dy, sc, bi, max(1, c // 32), silu)
+            _, mom = groupnorm_silu_with_moments(x, sc, bi, max(1, c // 32), silu)
+            got = groupnorm_silu_bwd(x, dy, sc, bi, max(1, c // 32), silu, mom)
             ref = groupnorm_silu_bwd_plain(x, dy, sc, bi, max(1, c // 32), silu)
             for k, (a, r) in enumerate(zip(got, ref)):
                 _bwd_close(a, r, (1e-4 if k == 0 else 1e-3) if f32 else 1 / 64)
@@ -396,19 +398,22 @@ def test_backward_kernels_match_plain_versions(dtype):
 
 @pytest.mark.cuda
 def test_backward_kernels_repeat_bit_for_bit():
-    """K2's backward and K3's weight gradient sum their partials in a fixed order: two
+    """K2's backward (its last block sums the samples' partials in sample order, whichever
+    block finishes last) and K3's weight gradient sum their partials in a fixed order: two
     calls on the same inputs give the same bits, in bf16 and f32."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    from diamond_tpu_torch.ops import conv3x3_wgrad, groupnorm_silu_bwd
+    from diamond_tpu_torch.ops import (conv3x3_wgrad, groupnorm_silu_bwd,
+                                       groupnorm_silu_with_moments)
 
     g = torch.Generator(device="cuda").manual_seed(8)
     for dt in (torch.bfloat16, torch.float32):
         for b, h, c in [(32, 64, 32), (32, 8, 64), (2, 64, 128)]:
             x, _, sc, bi = _norm_inputs(b, h, c, dt, g)
             dy = torch.randn(x.shape, device="cuda", generator=g).to(dt)
-            first = groupnorm_silu_bwd(x, dy, sc, bi, c // 32)
-            again = groupnorm_silu_bwd(x, dy, sc, bi, c // 32)
+            _, mom = groupnorm_silu_with_moments(x, sc, bi, c // 32)
+            first = groupnorm_silu_bwd(x, dy, sc, bi, c // 32, True, mom)
+            again = groupnorm_silu_bwd(x, dy, sc, bi, c // 32, True, mom)
             torch.cuda.synchronize()
             assert all(torch.equal(a, r) for a, r in zip(first, again))
         for b, h, w, cin, cout in WGRAD_SHAPES[:5]:
@@ -462,22 +467,66 @@ def test_autograd_functions_pass_a_directional_gradcheck():
 
 
 @pytest.mark.cuda
-def test_card_places_the_16_block_backward_clusters():
-    """K2's backward on 64x64x128 (16 blocks per sample, x and dy resident in bf16) is a
-    plan this card can run, so the wrapper launches it as planned, on the forward's
-    clusters."""
+def test_norm_forwards_write_the_moments_their_backwards_read():
+    """K1's and K2's forward kernels with the moments output: the same y bit for bit as
+    without it (the rollout's calls pass none), and each group's mean and 1/std within
+    1e-6 of max(1, their largest |value|) of the plain ones (f32 on both sides), at the
+    step signatures and ragged cases, bf16 and f32."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    from diamond_tpu_torch import kernels
-    from diamond_tpu_torch.ops.fused_norms import launch_plan, placed_bwd_plan
-    from diamond_tpu_torch.ops.norm_plan import bwd_plan, norm_plan
+    from diamond_tpu_torch.ops import (adagn_silu_with_moments, group_moments,
+                                       groupnorm_silu_with_moments)
 
-    x = torch.zeros(32, 64, 64, 128, dtype=torch.bfloat16, device="cuda")
-    p = bwd_plan(norm_plan(32, 64 * 64, 128, 4, 2))
-    assert p.n == 16 and p.resident
-    for film in (0, 1):  # K2's backward, then K1's
-        assert kernels.lib().gn_bwd_max_clusters(p.c_ints, film) > 0
-        assert placed_bwd_plan(launch_plan(x, 4, "groupnorm_silu_bwd"), 0, bool(film)) is p
+    g = torch.Generator(device="cuda").manual_seed(13)
+    for dt in (torch.bfloat16, torch.float32):
+        for b, h, c in K1_BWD_SHAPES + GN_BWD_SHAPES:
+            gr = max(1, c // 32)
+            x, ss, sc, bi = _norm_inputs(b, h, c, dt, g, torch.bfloat16)
+            ref = group_moments(x, gr)
+            for fn, with_moments, args in (
+                    (adagn_silu, adagn_silu_with_moments, (x, ss, gr)),
+                    (groupnorm_silu, groupnorm_silu_with_moments, (x, sc, bi, gr))):
+                y, mom = with_moments(*args)
+                torch.cuda.synchronize()
+                assert torch.equal(y, fn(*args)), (fn.__name__, b, h, c, dt)
+                assert mom.shape == (b, gr, 2) and mom.dtype == torch.float32
+                err = (mom - ref).abs().max().item()
+                assert err <= 1e-6 * max(1.0, ref.abs().max().item()), (b, h, c, dt, err)
+
+
+@pytest.mark.cuda
+def test_backward_plans_are_portable_and_k2_needs_one_launch():
+    """The backward plans of every step signature use portable clusters (at most 8
+    blocks); K2's backward is one launch (its last block sums the samples) and leaves its
+    ticket counter at 0; both kernels refuse a call without the forward's moments."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from torch.profiler import ProfilerActivity, profile
+
+    from diamond_tpu_torch.ops import (adagn_silu_bwd, groupnorm_silu_bwd,
+                                       groupnorm_silu_with_moments)
+    from diamond_tpu_torch.ops.fused_norms import _ticket
+    from diamond_tpu_torch.ops.norm_plan import bwd_plan
+
+    for b, h, c in K1_BWD_SHAPES + GN_BWD_SHAPES:
+        for es in (2, 4):
+            assert bwd_plan(b, h * h, c, max(1, c // 32), es).n <= 8
+    g = torch.Generator(device="cuda").manual_seed(14)
+    x, ss, sc, bi = _norm_inputs(32, 64, 64, torch.bfloat16, g)
+    dy = torch.randn(x.shape, device="cuda", generator=g).to(torch.bfloat16)
+    _, mom = groupnorm_silu_with_moments(x, sc, bi, 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        groupnorm_silu_bwd(x, dy, sc, bi, 2, True, mom)
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    assert launches == 1
+    assert int(_ticket(x.device).item()) == 0
+    with pytest.raises(ValueError, match="moments"):
+        groupnorm_silu_bwd(x, dy, sc, bi, 2)
+    with pytest.raises(ValueError, match="moments"):
+        adagn_silu_bwd(x, dy, ss, 2)
 
 
 # K1's backward at the denoiser step's signatures (B, H, C) and ragged cases; the
@@ -492,14 +541,15 @@ S2_SHAPES = [(32, 64, 64, 64, 64), (32, 32, 32, 64, 64), (32, 16, 16, 64, 64),
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_k1_backward_and_stride2_gradients_match_plain_versions(dtype):
-    """K1's backward (dx, and the FiLM gradient from f32 and from bf16 rows) and K3's
-    stride-2 data and weight gradients against their plain versions: bf16 within 1/64 of
-    max(1, max |plain|); f32 with TF32 off, dx within 1e-4, the FiLM gradient (per-sample
-    sums over up to 4096 pixels) and the conv gradients within 1e-3. Both repeat bit for
-    bit."""
+    """K1's backward (dx, and the FiLM gradient from f32 and from bf16 rows, in their
+    dtype, on the moments K1's forward kernel wrote) and K3's stride-2 data and weight
+    gradients against their plain versions: bf16 outputs within 1/64 of max(1, max
+    |plain|); f32 with TF32 off, dx within 1e-4, the FiLM gradient (per-sample sums over up
+    to 4096 pixels) and the conv gradients within 1e-3. Both repeat bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    from diamond_tpu_torch.ops import (adagn_silu_bwd, adagn_silu_bwd_plain, conv3x3_dgrad,
+    from diamond_tpu_torch.ops import (adagn_silu_bwd, adagn_silu_bwd_plain,
+                                       adagn_silu_with_moments, conv3x3_dgrad,
                                        conv3x3_dgrad_plain, conv3x3_wgrad, conv3x3_wgrad_plain)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -512,13 +562,15 @@ def test_k1_backward_and_stride2_gradients_match_plain_versions(dtype):
             x, ss, _, _ = _norm_inputs(b, h, c, dt, g, ss_dt)
             dy = torch.randn(x.shape, device="cuda", generator=g).to(dt)
             for silu in (True, False):
-                got = adagn_silu_bwd(x, dy, ss, max(1, c // 32), silu)
+                _, mom = adagn_silu_with_moments(x, ss, max(1, c // 32), silu)
+                got = adagn_silu_bwd(x, dy, ss, max(1, c // 32), silu, mom)
                 ref = adagn_silu_bwd_plain(x, dy, ss, max(1, c // 32), silu)
-                assert got[1].shape == (b, 2 * c) and got[1].dtype == torch.float32
+                assert got[1].shape == (b, 2 * c) and got[1].dtype == ss_dt
                 for k, (a, r) in enumerate(zip(got, ref)):
-                    _bwd_close(a, r, (1e-4 if k == 0 else 1e-3) if f32 else 1 / 64)
-            again = adagn_silu_bwd(x, dy, ss, max(1, c // 32))
-            first = adagn_silu_bwd(x, dy, ss, max(1, c // 32))
+                    bf = a.dtype == torch.bfloat16  # bf16 x, or the gradient of bf16 rows
+                    _bwd_close(a, r, 1 / 64 if bf else 1e-4 if k == 0 else 1e-3)
+            again = adagn_silu_bwd(x, dy, ss, max(1, c // 32), True, mom)
+            first = adagn_silu_bwd(x, dy, ss, max(1, c // 32), True, mom)
             torch.cuda.synchronize()
             assert all(torch.equal(a, r) for a, r in zip(first, again))
     tol = 1e-3 if f32 else 1 / 64

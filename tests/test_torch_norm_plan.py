@@ -205,3 +205,89 @@ def test_a_failed_placement_query_raises(monkeypatch):
             fused_norms.placed_plan(norm_plan(32, 64 * 64, 128, 4, 2), False, 0)
     finally:
         fused_norms.placed_plan.cache_clear()
+
+
+# ---------------------------------------------------------------------------
+# The backward's own plan (kernels/csrc/gn_bwd.cu, norm_plan.bwd_plan)
+
+# Every norm-backward signature of the train steps at B = 32, (H, C, G): the denoiser's K1
+# at 64/32/16/8 with C = 64 and 128 and its K2 (norm_out 64x64x64, the attention
+# pre-norms 8x8x64), the actor-critic trunk's K2 (64x64x32, 32x32x32, 16x16x32, 8x8x64)
+STEP_BWD = sorted({(h, c, c // 32) for h in (64, 32, 16, 8) for c in (64, 128)}
+                  | {(64, 32, 1), (32, 32, 1), (16, 32, 1)})
+BWD_RAGGED = [(1, 9, 32, 1, 2), (3, 5, 96, 3, 2), (4, 7, 512, 16, 4), (1, 64, 256, 8, 4),
+              (2, 33, 64, 2, 2)]
+
+
+def _bwd_cases():
+    for h, c, g in STEP_BWD:
+        for name, es in DTYPES.items():
+            yield pytest.param(32, h, c, g, es, id=f"{name}-{h}x{h}x{c}")
+    for b, h, c, g, es in BWD_RAGGED:
+        yield pytest.param(b, h, c, g, es, id=f"ragged-b{b}-{h}x{h}x{c}-g{g}-e{es}")
+
+
+def bwd_walk(p, rank):
+    """The element offsets (within its sample) each thread of block ``rank`` visits in
+    the backward's summing pass, in order (the part in device memory first, then the
+    chunks on chip), those of its dx pass over the part in device memory (last written
+    first), and the bulk copies' (offset, bytes) of each array."""
+    c, v, nt = p.C, p.vec, p.threads
+    span_px = min(p.ppb, p.HW - rank * p.ppb)
+    span, res, chunk, step = span_px * c, min(span_px, p.rpx) * c, p.cpx * c, nt * v
+    base = rank * p.ppb * c
+    nchunks = -(-res // chunk)
+    copies = [(base + k * chunk, min(chunk, res - k * chunk) * p.elem_bytes)
+              for k in range(nchunks)]
+    sums, back = [], []
+    for t in range(nt):
+        parts = [np.arange(res + t * v, span, step)]
+        parts += [np.arange(k * chunk + t * v, min((k + 1) * chunk, res), step)
+                  for k in range(nchunks)]
+        sums.append(base + np.concatenate(parts))
+        back.append(base + np.arange(res + t * v, span, step)[::-1])
+    return sums, back, copies
+
+
+@pytest.mark.parametrize("b,h,c,g,es", list(_bwd_cases()))
+def test_bwd_spans_cover_every_pixel_once_and_fit_the_blocks_per_sm(b, h, c, g, es):
+    """Replays the backward kernel's walk: the blocks' spans are whole pixels that cover
+    the sample once; the summing pass visits every element by exactly one thread, each
+    thread on its V channels; the dx pass revisits the part in device memory, each
+    element by the thread that wrote its g there; the bulk copies (x and dy, one barrier
+    each chunk) are 16-byte sized and aligned and copy the part on chip; the block's
+    shared memory (x and dy on chip, the per-channel sums, the partials, the channel sums
+    sent to it) fits four blocks an SM, and the 2C channel sums are owned once (c % n)."""
+    p = npl.bwd_plan(b, h * h, c, g, es)
+    assert npl.bwd_plan_ok(p) and p.n <= npl.BWD_CLUSTER
+    assert npl.BWD_BLOCKS_PER_SM * (p.smem + npl.BWD_STATIC + npl.SMEM_RESERVED) <= npl.SMEM_SM
+    seen = np.zeros(h * h * c, dtype=np.int64)
+    for rank in range(p.n):
+        assert rank * p.ppb < h * h  # no block without pixels
+        sums, back, copies = bwd_walk(p, rank)
+        for t, (seq, rev) in enumerate(zip(sums, back)):
+            assert (seq % c == (t * p.vec) % c).all()
+            for j in range(p.vec):
+                seen[seq + j] += 1
+            assert set(rev.tolist()) <= set(seq.tolist()) and (np.diff(rev) < 0).all()
+        on_chip = min(p.ppb, h * h - rank * p.ppb, p.rpx) * c * es
+        assert sum(n for _, n in copies) == on_chip
+        for off, n in copies:
+            assert (off * es) % 16 == 0 and n % 16 == 0 and 0 < 2 * n < 1 << 20
+    assert (seen == 1).all()
+    owners = [ch % p.n for ch in range(2 * c)]
+    mine = [(2 * c - r + p.n - 1) // p.n for r in range(p.n)]
+    assert [owners.count(r) for r in range(p.n)] == mine
+    assert max(mine) == -(-2 * c // p.n)
+
+
+def test_bwd_cluster_size_follows_the_block_bytes():
+    """The smallest of 1, 2, 4 or 8 blocks per sample that leaves a block at most 16 KB
+    of x and dy, at most 8 (a portable cluster): 8x8x64 bf16 (16 KB) one block, 16x16x64
+    (64 KB) four, 64x64 and 32x32 eight, whatever the dtype."""
+    assert npl.bwd_plan(32, 64, 64, 2, 2).n == 1
+    assert npl.bwd_plan(32, 64, 128, 4, 2).n == 2
+    assert npl.bwd_plan(32, 256, 64, 2, 2).n == 4
+    assert npl.bwd_plan(32, 256, 32, 1, 2).n == 2
+    for hw, c, es in [(1024, 32, 2), (1024, 64, 4), (4096, 32, 2), (4096, 128, 4)]:
+        assert npl.bwd_plan(32, hw, c, c // 32, es).n == 8
