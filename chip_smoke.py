@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of diamond_tpu_torch: the imagination rollout of the full-size Breakout
 agent on one NVIDIA GPU, bf16 and static int8 (the production default), the
-actor-critic train step in imagination on the int8 world model, and the denoiser train
-step, through the port's hand-written CUDA kernels.
+actor-critic train step in imagination on the int8 world model, the denoiser train
+step, the rew/end train step fed from the device episode store, and the model-free
+actor-critic step, through the port's hand-written CUDA kernels.
 
     python3 chip_smoke.py              # from the repo root, on a machine with a CUDA GPU
 
@@ -50,8 +51,23 @@ result line):
      norm backwards), one under the sync debug mode; every parameter gets a finite
      gradient and moves, the agent's denoiser stays untouched; the host cost of each
      backward piece per call;
+  6d. the rew/end train step (training.make_rew_end_train_step, B=32, T=19, bf16,
+     trainer.yaml's rew/end optimizer with warmup 0) on a deep copy of the agent's
+     rew/end model, fed by StoreBatchIterator: a Dataset of 10,000 seeded synthetic
+     steps (deaths with their final frames) mirrored into a DeviceEpisodeStore on the
+     card, segments drawn with trainer.yaml's weights and can_sample_beyond_end, the
+     store's batch held to the host collate; counts set to 0, one warm-up and REW_STEPS
+     timed steps -> ms per step, rew/end training frames/s (B x (T - 1) / step),
+     launches per step held to the encoder's module tree, peak memory; one step
+     profiled, one under the sync debug mode (none allowed), every leaf's gradient
+     finite and every weight moved, the eval step, two steps with grad_acc_steps = 2
+     (the weights move on the second only), the agent's rew/end model untouched;
+  6e. the model-free AC step (training.make_model_free_ac_train_step, B=32, T=15, bf16)
+     on seeded recorded tensors with resets, on a deep copy of the actor-critic: counts
+     set to 0, one warm-up and MF_STEPS timed steps, launches held to the trunk's module
+     tree, one step profiled, none synchronising, every weight moved;
   7. each kernel against its plain PyTorch version at every shape and dtype its paths
-     sent it (the backward kernels: the AC step's and the denoiser step's), and in f32
+     sent it (the backward kernels: those of the four train steps), and in f32
      (TF32 off), with device times, bounds and library yardsticks (the weight gradient
      also its bias gradient's error); the backward kernels repeat bit for bit; K1/K2
      forward with the moments output gives the same y as without, and the moments
@@ -64,7 +80,9 @@ result line):
      the same rollouts through the plain versions on the CPU, bf16 path and int8 path;
      the actor-critic's gradient (trunk and heads) on the same frames and carries, card
      against CPU, and a B=2, T=2 f32 AC-step loss and gradient card against CPU; a B=2,
-     two-window f32 denoiser loss, its gradients and its fed-back frame card against CPU.
+     two-window f32 denoiser loss, its gradients and its fed-back frame card against CPU;
+     a B=2 f32 rew/end loss (with the final-obs swap), its confusion matrices and
+     gradients, and a B=2 f32 model-free AC loss and gradients, card against CPU.
 The last line is {"ok": true, "device": {...}}; the line before it lists the kernels.
 """
 
@@ -84,17 +102,23 @@ POOL_SIZE = 1024
 TIMED_ROLLOUTS = 2
 AC_STEPS = 3
 DEN_STEPS = 3
+REW_STEPS = 3
+MF_STEPS = 3
+# the rew/end step's dataset: about what the first epoch's collection leaves
+# (trainer.yaml collection.train.first_epoch: 5,000 to 10,000 steps)
+DATASET_STEPS = 10_000
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
 # kernel -> (source, the TPU kernel it replaces, the paths that launch it: rollout paths
 # and train steps, the first of them the one its line of the kernels table reports)
 KERNELS = {
     "adagn_silu": ("diamond_tpu_torch/kernels/csrc/fused_norms.cu",
-                   "diamond_tpu/ops/fused_norms.py:97", ("bf16", "denoiser_step")),
+                   "diamond_tpu/ops/fused_norms.py:97", ("bf16", "denoiser_step", "rew_end_step")),
     "groupnorm_silu": ("diamond_tpu_torch/kernels/csrc/fused_norms.cu",
-                       "diamond_tpu/ops/fused_norms.py:65", ("bf16", "denoiser_step")),
+                       "diamond_tpu/ops/fused_norms.py:65",
+                       ("bf16", "denoiser_step", "rew_end_step", "mf_ac_step")),
     "conv3x3": ("diamond_tpu_torch/kernels/csrc/conv3x3.cu", "diamond_tpu/ops/conv3x3.py:33",
-                ("bf16", "denoiser_step")),
+                ("bf16", "denoiser_step", "rew_end_step", "mf_ac_step")),
     "adagn_silu_q8": ("diamond_tpu_torch/kernels/csrc/fused_q8.cu",
                       "diamond_tpu/ops/fused_q8.py:55", ("int8",)),
     "groupnorm_silu_q8": ("diamond_tpu_torch/kernels/csrc/fused_q8.cu",
@@ -103,18 +127,21 @@ KERNELS = {
                      "diamond_tpu/ops/quant.py:161", ("int8",)),
     # the backward of K2's custom_vjp (the XLA VJP of _gn_silu_ref on the TPU)
     "groupnorm_silu_bwd": ("diamond_tpu_torch/kernels/csrc/gn_bwd.cu",
-                           "diamond_tpu/ops/fused_norms.py:155", ("ac_step", "denoiser_step")),
+                           "diamond_tpu/ops/fused_norms.py:155",
+                           ("ac_step", "denoiser_step", "rew_end_step", "mf_ac_step")),
     # K3's gradients (XLA's VJP of the 3x3 conv on the TPU): the data gradient at stride 1
     # (K3 on dy) and at stride 2 (a kernel of its own), the weight and bias gradients
     "conv3x3_dgrad": ("diamond_tpu_torch/kernels/csrc/conv3x3.cu",
-                      "diamond_tpu/ops/conv3x3.py:33", ("ac_step", "denoiser_step")),
+                      "diamond_tpu/ops/conv3x3.py:33",
+                      ("ac_step", "denoiser_step", "rew_end_step", "mf_ac_step")),
     "conv3x3_dgrad_s2": ("diamond_tpu_torch/kernels/csrc/conv3x3_dgrad_s2.cu",
-                         "diamond_tpu/ops/conv3x3.py:33", ("denoiser_step",)),
+                         "diamond_tpu/ops/conv3x3.py:33", ("denoiser_step", "rew_end_step")),
     "conv3x3_wgrad": ("diamond_tpu_torch/kernels/csrc/conv3x3_wgrad.cu",
-                      "diamond_tpu/ops/conv3x3.py:33", ("ac_step", "denoiser_step")),
+                      "diamond_tpu/ops/conv3x3.py:33",
+                      ("ac_step", "denoiser_step", "rew_end_step", "mf_ac_step")),
     # the backward of K1's custom_vjp (the XLA VJP of _adagn_silu_ref on the TPU)
     "adagn_silu_bwd": ("diamond_tpu_torch/kernels/csrc/gn_bwd.cu",
-                       "diamond_tpu/ops/fused_norms.py:187", ("denoiser_step",)),
+                       "diamond_tpu/ops/fused_norms.py:187", ("denoiser_step", "rew_end_step")),
 }
 BACKWARD = ("groupnorm_silu_bwd", "conv3x3_dgrad", "conv3x3_wgrad")
 # the backward kernels, whose sums run in a fixed order: two calls give the same bits
@@ -150,7 +177,8 @@ TOL = {"float32": {"adagn_silu": 1e-4, "groupnorm_silu": 1e-4, "conv3x3": 1e-3,
                     "conv3x3_dgrad_s2": 1 / 64, "conv3x3_wgrad": 1 / 64}}
 CODE_SHARE = 1e-3
 PER_RUN = {"bf16": "rollout", "int8": "rollout", "ac_step": "AC step",
-           "denoiser_step": "denoiser step"}
+           "denoiser_step": "denoiser step", "rew_end_step": "rew/end step",
+           "mf_ac_step": "model-free AC step"}
 # The H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and dense
 # operations/s by type; the norms' element-wise work runs on the CUDA cores in f32.
 HBM_BYTES_S = 3.35e12
@@ -933,8 +961,8 @@ def sync_points(fn) -> dict:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     where = {}
-    for w in caught:
-        if "synchroniz" in str(w.message):
+    for w in caught:  # (not the note, once a process, that the mode is a prototype)
+        if "synchroniz" in str(w.message) and "prototype" not in str(w.message):
             key = f"{Path(w.filename).name}:{w.lineno}"
             where[key] = where.get(key, 0) + 1
     return where
@@ -1162,25 +1190,25 @@ def ac_step_reference(agent, st, pool, wm_cfg):
                 frame_share=(d > 0).float().mean().item())
 
 
-def expected_denoiser_launches(inner, windows: int) -> dict:
-    """The kernel launches one denoiser step makes, from the module tree: per window one
-    forward (K1 per fused AdaGN, K2 per GroupNorm, K3 per 3x3 conv) and one backward (the
-    same count of K1's and K2's backwards and of weight gradients, each with the bias
-    gradient, and a data gradient for every conv but ``conv_in``, whose input needs none:
-    K3 at stride 1, the stride-2 kernel at the Downsample convs)."""
+def expected_launches(net, calls: int = 1) -> dict:
+    """The kernel launches of a train step that runs ``net`` ``calls`` times forward and
+    backward, from its module tree: per call K1 per fused AdaGN, K2 per GroupNorm, K3 per
+    3x3 conv, as many K1 and K2 backwards and weight gradients, each with the bias
+    gradient, and a data gradient for every conv but the first (``conv_in``, whose input
+    needs none): K3 at stride 1, the stride-2 kernel at the Downsample convs."""
     from diamond_tpu_torch.models.blocks import AdaGroupNorm, Conv3x3, GroupNorm
 
-    mods = list(inner.modules())
+    mods = list(net.modules())
     k1 = sum(isinstance(m, AdaGroupNorm) for m in mods)
     k2 = sum(isinstance(m, GroupNorm) for m in mods)
     k3 = sum(isinstance(m, Conv3x3) for m in mods)
     s2 = sum(isinstance(m, Conv3x3) and m.strides == 2 for m in mods)
-    w = windows
-    return {"adagn_silu": w * k1, "adagn_silu_bwd": w * k1, "groupnorm_silu": w * k2,
-            "groupnorm_silu_bwd": w * k2, "conv3x3": w * k3,
-            "conv3x3_dgrad": w * (k3 - 1 - s2), "conv3x3_dgrad_s2": w * s2,
-            "conv3x3_wgrad": w * k3, "conv3x3_wgrad at stride 2": w * s2,
-            "conv3x3_wgrad with the bias gradient": w * k3}
+    n = calls
+    return {"adagn_silu": n * k1, "adagn_silu_bwd": n * k1, "groupnorm_silu": n * k2,
+            "groupnorm_silu_bwd": n * k2, "conv3x3": n * k3,
+            "conv3x3_dgrad": n * (k3 - 1 - s2), "conv3x3_dgrad_s2": n * s2,
+            "conv3x3_wgrad": n * k3, "conv3x3_wgrad at stride 2": n * s2,
+            "conv3x3_wgrad with the bias gradient": n * k3}
 
 
 def removed_launch_calls(inner, windows: int) -> int:
@@ -1207,8 +1235,13 @@ def denoiser_batch(cfg, b: int, gen, device):
     obs = torch.randint(0, 256, (b, t, size, size, inner.img_channels), generator=gen,
                         dtype=torch.uint8).to(device)
     act = torch.randint(0, cfg.num_actions, (b, t), generator=gen).to(device)
-    return DeviceBatch(obs=obs, act=act, mask_padding=torch.ones((b, t), dtype=torch.bool,
-                                                                 device=device))
+    zeros = dict(device=device, dtype=torch.int32)
+    return DeviceBatch(obs=obs, act=act, rew=torch.zeros((b, t), device=device),
+                       end=torch.zeros((b, t), **zeros), trunc=torch.zeros((b, t), **zeros),
+                       mask_padding=torch.ones((b, t), dtype=torch.bool, device=device),
+                       final_obs=torch.zeros((b,) + tuple(obs.shape[2:]), dtype=torch.uint8,
+                                             device=device),
+                       has_final_obs=torch.zeros((b,), dtype=torch.bool, device=device))
 
 
 def host_costs() -> dict:
@@ -1265,7 +1298,6 @@ def denoiser_step_phase(agent, smi):
     from dataclasses import replace
 
     import torch
-    from diamond_tpu_torch import ops
     from diamond_tpu_torch.config import TrainerConfig
     from diamond_tpu_torch.data.episode import obs_to_float
     from diamond_tpu_torch.training import OptimizerSpec, TrainState, make_denoiser_train_step
@@ -1288,9 +1320,7 @@ def denoiser_step_phase(agent, smi):
     state, m = step(state, batch, generator=dgen)
     torch.cuda.synchronize()
     check(all(bool(torch.isfinite(v)) for v in m.values()), f"denoiser step: non-finite {m}")
-    moved = sum(not torch.equal(p.detach(), before[n]) for n, p in net.named_parameters())
-    check(moved == len(before), f"denoiser step: {len(before) - moved} parameter tensors "
-          "did not change in the first step (warmup 0)")
+    check_all_moved_and_finite(net, before, "denoiser step (first step, warmup 0)")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(DEN_STEPS):
@@ -1299,17 +1329,8 @@ def denoiser_step_phase(agent, smi):
     secs = (time.perf_counter() - t0) / DEN_STEPS
     peak = torch.cuda.max_memory_allocated()
     steps = 1 + DEN_STEPS
-    launches = {name: getattr(ops, name).launches for name in KERNELS}
-    shapes = {name: dict(getattr(ops, name).shapes) for name in KERNELS}
-    per_step = {name: launches[name] / steps for name in launches}
-    wg = shapes["conv3x3_wgrad"]
-    per_step["conv3x3_wgrad at stride 2"] = sum(c for sig, c in wg.items() if sig[2] == 2) / steps
-    per_step["conv3x3_wgrad with the bias gradient"] = sum(
-        c for sig, c in wg.items() if sig[3]) / steps
-    expected = expected_denoiser_launches(net, windows)
-    for k, v in expected.items():
-        check(per_step[k] == v, f"denoiser step: {per_step[k]} {k} launches per step, the "
-              f"module tree says {v}")
+    launches, shapes, per_step = per_step_launches(steps)
+    check_launches(per_step, expected_launches(net, windows), "denoiser step")
     metrics = {k: v.item() for k, v in m.items()}
     check(all(map(math.isfinite, metrics.values())), f"denoiser step: non-finite {metrics}")
     fps = BATCH * windows / secs
@@ -1336,18 +1357,10 @@ def denoiser_step_phase(agent, smi):
         f"stride-2 flips, and {norm_removed:g} K2 sums and casts)")
     syncs = sync_points(lambda: step(state, batch, generator=dgen))
     log(f"[sync] denoiser step: {sum(syncs.values())} host-device synchronisations {syncs}")
-    # every parameter leaf receives a finite gradient (checked outside the counted run)
-    state.opt_state.zero_grad(set_to_none=True)
-    with torch.enable_grad():
-        loss, _ = den.loss(obs_to_float(batch.obs), batch.act, batch.mask_padding,
-                           tcfg.sigma_distribution, generator=dgen)
-        loss.backward()
-    missing = [n for n, p in net.named_parameters()
-               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
-    check(not missing, f"denoiser step: no finite gradient for {missing}")
-    state.opt_state.zero_grad(set_to_none=True)
-    with torch.no_grad():
-        moved = max((p - before[n]).abs().max().item() for n, p in net.named_parameters())
+    check_finite_gradients(net, lambda: den.loss(
+        obs_to_float(batch.obs), batch.act, batch.mask_padding, tcfg.sigma_distribution,
+        generator=dgen)[0], "denoiser step")
+    moved = check_all_moved_and_finite(net, before, "denoiser step")
     untouched = all(torch.equal(v, src_before[k]) for k, v in src.state_dict().items())
     check(untouched and all(p.grad is None for p in src.parameters()),
           "denoiser step: the agent's denoiser changed or has gradients")
@@ -1404,21 +1417,423 @@ def denoiser_step_reference(agent):
                      torch.round((fed.cpu().double() + 1) * 127.5)))
     (lg, gg, fg), (lc, gc, fc) = outs
     check(abs(lg - lc) <= 1e-4 * abs(lc), f"denoiser step reference: loss {lg} vs {lc}")
-    shares = {k: (gg[k] - gc[k]).abs().max().item() / max(gc[k].abs().max().item(), 1e-30)
-              for k in gc}
-    worst = max(shares, key=shares.get)
-    check(shares[worst] <= 1e-2, f"denoiser step reference: {worst}'s gradient differs by "
-          f"{shares[worst]:.3g} of its largest |value|")
+    share, worst = grads_close(gg, gc, 1e-2, "denoiser step reference")
     dl = (fg - fc).abs()
-    share = (dl > 0).float().mean().item()
-    check(dl.max().item() <= 1 and share <= 1e-3,
-          f"denoiser step reference: fed-back frames differ by {dl.max().item()} in {share}")
+    frame_share = (dl > 0).float().mean().item()
+    check(dl.max().item() <= 1 and frame_share <= 1e-3, f"denoiser step reference: fed-back "
+          f"frames differ by {dl.max().item()} in {frame_share}")
     log(f"[reference] denoiser step B={b} T={t} f32 card vs CPU plain: loss {lg:.7g} vs "
-        f"{lc:.7g}; every gradient within {shares[worst]:.3g} of its leaf's largest |value| "
+        f"{lc:.7g}; every gradient within {share:.3g} of its leaf's largest |value| "
         f"({worst}; limit 1e-2); fed-back frame off by up to {int(dl.max().item())} "
-        f"level(s) in {share:.4%} of values")
-    return dict(loss_card=lg, loss_cpu=lc, max_grad_share=shares[worst], worst_leaf=worst,
-                frame_max_levels=int(dl.max().item()), frame_share=share)
+        f"level(s) in {frame_share:.4%} of values")
+    return dict(loss_card=lg, loss_cpu=lc, max_grad_share=share, worst_leaf=worst,
+                frame_max_levels=int(dl.max().item()), frame_share=frame_share)
+
+
+def synthetic_dataset(cfg):
+    """A Dataset (held in RAM) of seeded synthetic episodes, DATASET_STEPS steps in all, as
+    the first epoch's collection leaves it: lengths 100 to 999, sparse rewards of both
+    signs (some larger than 1, which the loss sign-clips), two episodes in three ending in
+    a death with its final frame, the others truncated, the last one still running."""
+    import numpy as np
+    from diamond_tpu_torch.data.dataset import Dataset
+    from diamond_tpu_torch.data.episode import Episode
+
+    rng = np.random.default_rng(SEED + 11)
+    size, ch = cfg.rew_end_model.img_size, cfg.rew_end_model.img_channels
+    ds = Dataset(OUT_DIR / "rew_end_dataset", "train_dataset", cache_in_ram=True,
+                 save_on_disk=False)
+    total, i = 0, 0
+    while total < DATASET_STEPS:
+        n = min(int(rng.integers(100, 1000)), DATASET_STEPS - total)
+        end, trunc = np.zeros(n, np.uint8), np.zeros(n, np.uint8)
+        info = {}
+        last = total + n >= DATASET_STEPS
+        if not last:
+            (end if i % 3 < 2 else trunc)[-1] = 1
+            info["final_observation"] = rng.integers(0, 256, (size, size, ch), dtype=np.uint8)
+        ds.add_episode(Episode(
+            obs=rng.integers(0, 256, (n, size, size, ch), dtype=np.uint8),
+            act=rng.integers(0, cfg.num_actions, n).astype(np.int32),
+            rew=rng.choice([-1.0, 0.0, 1.0, 3.0], n, p=[0.02, 0.9, 0.06, 0.02]).astype(
+                np.float32), end=end, trunc=trunc, info=info))
+        total, i = total + n, i + 1
+    return ds
+
+
+def per_step_launches(steps: int) -> tuple:
+    """(launches, signatures, launches per step) read from the wrappers' counts, with the
+    weight gradient's calls at stride 2 and with the bias gradient apart."""
+    from diamond_tpu_torch import ops
+
+    launches = {name: getattr(ops, name).launches for name in KERNELS}
+    shapes = {name: dict(getattr(ops, name).shapes) for name in KERNELS}
+    per_step = {name: launches[name] / steps for name in launches}
+    wg = shapes["conv3x3_wgrad"]
+    per_step["conv3x3_wgrad at stride 2"] = sum(c for sig, c in wg.items() if sig[2] == 2) / steps
+    per_step["conv3x3_wgrad with the bias gradient"] = sum(
+        c for sig, c in wg.items() if sig[3]) / steps
+    return launches, shapes, per_step
+
+
+def check_launches(per_step: dict, expected: dict, what: str) -> None:
+    """Each kernel's launches per step equal the module tree's count (0 where it has
+    none)."""
+    for k, v in {**dict.fromkeys(KERNELS, 0), **expected}.items():
+        check(per_step[k] == v, f"{what}: {per_step[k]} {k} launches per step, the module "
+              f"tree says {v}")
+
+
+def check_all_moved_and_finite(net, before, what: str) -> float:
+    """Every parameter tensor of ``net`` moved from ``before`` and is finite; returns the
+    largest change."""
+    import torch
+
+    with torch.no_grad():
+        bad = [n for n, p in net.named_parameters()
+               if torch.equal(p, before[n]) or not bool(torch.isfinite(p).all())]
+        check(not bad, f"{what}: {len(bad)} parameter tensors did not move or are not "
+              f"finite: {bad[:5]}")
+        return max((p - before[n]).abs().max().item() for n, p in net.named_parameters())
+
+
+def check_finite_gradients(net, loss_fn, what: str) -> None:
+    """One loss's backward gives every parameter of ``net`` a finite gradient (outside
+    the counted run); the gradients are cleared after."""
+    import torch
+
+    net.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+        loss_fn().backward()
+    missing = [n for n, p in net.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    net.zero_grad(set_to_none=True)
+    check(not missing, f"{what}: no finite gradient for {missing}")
+
+
+def rew_end_step_phase(agent, smi):
+    """The rew/end train step as the trainer runs it: a Dataset of DATASET_STEPS seeded
+    synthetic steps mirrored into a DeviceEpisodeStore on the card, segments drawn by the
+    BatchSampler with trainer.yaml's weights and can_sample_beyond_end, batches gathered
+    by the store (StoreBatchIterator), and training.make_rew_end_train_step with
+    trainer.yaml's rew/end section (lr 1e-4, decay 1e-2, eps 1e-8, clip 100; warmup 0, so
+    that the first step moves the weights) at B = 32, T = 19, bf16 compute over f32
+    parameters, on a deep copy of the agent's rew/end model. The store's gather is held
+    to the host collate on one batch. Counts set to 0, one warm-up step and REW_STEPS
+    timed ones (each with a new batch), counts read and held to the module tree's; then
+    one step profiled, one under the sync debug mode (no synchronisation allowed), every
+    leaf's gradient finite, the eval step, and two steps with grad_acc_steps = 2 (the
+    weights move on the second only). The agent's rew/end model is checked untouched.
+    Returns (signatures, result)."""
+    import copy
+    from dataclasses import fields, replace
+
+    import torch
+    from diamond_tpu_torch.config import TrainerConfig
+    from diamond_tpu_torch.data.batch_sampler import BatchSampler
+    from diamond_tpu_torch.data.device_store import DeviceEpisodeStore, StoreBatchIterator
+    from diamond_tpu_torch.data.segment import DeviceBatch, collate_segments_to_batch
+    from diamond_tpu_torch.training import (OptimizerSpec, TrainState, make_rew_end_eval_step,
+                                            make_rew_end_train_step)
+    from diamond_tpu_torch.utils import compute_classification_metrics
+
+    tcfg = TrainerConfig().rew_end_model
+    tr = tcfg.training
+    cfg = agent.cfg.rew_end_model
+    t0 = time.perf_counter()
+    ds = synthetic_dataset(agent.cfg)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store = DeviceEpisodeStore(ds.num_steps, (cfg.img_size, cfg.img_size, cfg.img_channels),
+                               max_episodes=ds.num_episodes, device="cuda")
+    store.sync(ds)
+    torch.cuda.synchronize()
+    sync_s = time.perf_counter() - t0
+    deaths = int(ds.counts_end[1])
+    log(f"[rew_end_step] dataset: {ds.num_episodes} episodes, {ds.num_steps} steps, {deaths} "
+        f"deaths with their final frame, made in {gen_s:.2f} s; mirrored into the device "
+        f"store ({store.obs.numel() / 2**20:.1f} MiB of frames) in {sync_s:.2f} s")
+    sampler = BatchSampler(ds, 0, 1, tr.batch_size, tr.seq_length, tr.sample_weights,
+                           can_sample_beyond_end=True, seed=SEED + 12)
+    ids = sampler.sample()
+    dev, host = store.make_batch(ids), DeviceBatch.from_batch(
+        collate_segments_to_batch([ds[s] for s in ids]), "cuda")
+    for f in fields(DeviceBatch):
+        check(torch.equal(getattr(dev, f.name), getattr(host, f.name)),
+              f"rew/end step: the store's {f.name} differs from the host collate")
+    beyond = sum(s.stop > ds.lengths[s.episode_id] for s in ids)
+    log(f"[rew_end_step] the store's batch equals the host collate field for field "
+        f"({beyond} of {len(ids)} windows reach past their episode's end, "
+        f"{int(dev.has_final_obs.sum())} carry a final frame)")
+    batches = StoreBatchIterator(store, sampler)
+
+    src = agent.rew_end_model.net
+    src_before = {k: v.detach().clone() for k, v in src.state_dict().items()}
+    model = copy.deepcopy(agent.rew_end_model)
+    net = model.net
+    before = {n: p.detach().clone() for n, p in net.named_parameters()}
+    spec = replace(OptimizerSpec.from_cfg(tcfg.optimizer, tr), lr_warmup_steps=0)
+    tx = spec.build()
+    state = TrainState.create(net, tx)
+    step = make_rew_end_train_step(model, tx)
+
+    count_reset()
+    state, m = step(state, next(batches))
+    torch.cuda.synchronize()
+    check_all_moved_and_finite(net, before, "rew/end step (first step, warmup 0)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(REW_STEPS):
+        state, m = step(state, next(batches))
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / REW_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    steps = 1 + REW_STEPS
+    launches, shapes, per_step = per_step_launches(steps)
+    check_launches(per_step, expected_launches(net.encoder), "rew/end step")
+    cms = {k: v.tolist() for k, v in m.pop("confusion_matrix").items()}
+    metrics = {k: v.item() for k, v in m.items()}
+    check(all(map(math.isfinite, metrics.values())), f"rew/end step: non-finite {metrics}")
+    frames = tr.batch_size * (tr.seq_length - 1)
+    check(sum(map(sum, cms["end"])) <= frames, "rew/end step: confusion matrix over the batch")
+    fps = frames / secs
+    log(f"[rew_end_step] B={tr.batch_size} T={tr.seq_length} ({frames} samples through the "
+        f"encoder), bf16 compute, f32 parameters, warmup 0: {secs * 1e3:.1f} ms per step "
+        f"(batch gather included), {fps:.1f} rew/end training frames/s (B x (T - 1) / step) "
+        f"over {REW_STEPS} steps after one warm-up, peak memory {peak / 2**30:.2f} GiB, on "
+        f"{smi}")
+    log("[rew_end_step] metrics of the last step: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in metrics.items())
+        + f"; confusion matrices {cms}; end-class recall "
+        + str([round(float(r), 4) for r in compute_classification_metrics(cms["end"])[1]]))
+    log(f"[launches] rew_end_step, per step (as the module tree says): "
+        + ", ".join(f"{k} {v:g}" for k, v in per_step.items() if v))
+
+    profile = profile_run(lambda: step(state, next(batches)), "rew_end_step", "rew/end step")
+    log_unprofiled_idle(profile, secs * 1e3, "rew/end step")
+    check_conv_backward(profile, per_step["conv3x3_dgrad"], "rew/end step")
+    check_norm_backward(profile, "rew/end step")
+    syncs = sync_points(lambda: step(state, next(batches)))
+    log(f"[sync] rew/end step with its batch gather: {sum(syncs.values())} host-device "
+        f"synchronisations {syncs}")
+    check(not syncs, f"rew/end step: host-device synchronisations {syncs}")
+    b = next(batches)
+    check_finite_gradients(net, lambda: model.loss(
+        b.obs.float() / 127.5 - 1, b.act, b.rew, b.end, b.mask_padding,
+        b.final_obs.float() / 127.5 - 1, b.has_final_obs)[0], "rew/end step")
+    ev = make_rew_end_eval_step(model)(next(batches))
+    check(all(bool(torch.isfinite(ev[k])) for k in ("loss_rew", "loss_end", "loss_total")),
+          f"rew/end eval step: non-finite {ev}")
+    moved = check_all_moved_and_finite(net, before, "rew/end step")
+
+    # gradient accumulation: two micro-steps, the weights move on the second only
+    tx2 = replace(spec, grad_acc_steps=2).build()
+    state2 = TrainState.create(net, tx2)
+    step2 = make_rew_end_train_step(model, tx2)
+    w0 = {n: p.detach().clone() for n, p in net.named_parameters()}
+    state2, m1 = step2(state2, next(batches))
+    torch.cuda.synchronize()
+    check(all(torch.equal(p, w0[n]) for n, p in net.named_parameters()),
+          "rew/end step, grad_acc_steps = 2: the first micro-step moved the weights")
+    state2, m2 = step2(state2, next(batches))
+    acc_moved = check_all_moved_and_finite(net, w0, "rew/end step, grad_acc_steps = 2")
+    norms = (m1["grad_norm_before_clip"].item(), m2["grad_norm_before_clip"].item())
+    check(all(map(math.isfinite, norms)) and state2.step == 2,
+          f"rew/end step, grad_acc_steps = 2: norms {norms}, {state2.step} micro-steps")
+    untouched = all(torch.equal(v, src_before[k]) for k, v in src.state_dict().items())
+    check(untouched and all(p.grad is None for p in src.parameters()),
+          "rew/end step: the agent's rew/end model changed or has gradients")
+    log(f"[rew_end_step] every one of {len(before)} parameter tensors got a finite gradient "
+        f"and moved (largest change {moved:.3g}); eval loss {ev['loss_total'].item():.4g}; "
+        f"grad_acc_steps = 2: weights unchanged after micro-step 1, moved after micro-step 2 "
+        f"(largest change {acc_moved:.3g}; micro-step norms {norms[0]:.4g}, {norms[1]:.4g}); "
+        "the agent's rew/end model untouched")
+    return shapes, dict(step_ms=secs * 1e3, frames_per_s=fps, samples_per_step=frames,
+                        peak_memory_bytes=peak, launches=launches, launches_per_step=per_step,
+                        metrics=metrics, confusion_matrix=cms, profile=profile,
+                        sync_points=syncs, max_weight_change=moved, steps=steps,
+                        dataset=dict(episodes=ds.num_episodes, steps=ds.num_steps,
+                                     deaths=deaths, store_sync_s=sync_s),
+                        grad_acc=dict(norms=norms, max_weight_change=acc_moved))
+
+
+def recorded_tensors(cfg, b: int, t: int, gen, device):
+    """Seeded tensors as the env loop records them for the model-free step: uint8 frames
+    (b, t, H, W, C), actions, rewards in {-1, 0, 1}, sparse ends and truncations (never
+    both), the LSTM reset gates (1 where the previous step ended the episode), the
+    starting carry and the bootstrap values."""
+    import torch
+
+    ac = cfg.actor_critic
+    obs = torch.randint(0, 256, (b, t, ac.img_size, ac.img_size, ac.img_channels),
+                        generator=gen, dtype=torch.uint8)
+    act = torch.randint(0, cfg.num_actions, (b, t), generator=gen)
+    rew = torch.randint(-1, 2, (b, t), generator=gen).float()
+    end = (torch.rand((b, t), generator=gen) < 0.05).float()
+    trunc = (torch.rand((b, t), generator=gen) < 0.03).float() * (1 - end)
+    reset = torch.zeros((b, t))
+    reset[:, 1:] = ((end + trunc)[:, :-1] > 0).float()
+    hx0, cx0 = (0.5 * torch.randn((b, ac.lstm_dim), generator=gen) for _ in range(2))
+    vboot = torch.randn((b, t), generator=gen)
+    return tuple(x.to(device) for x in (obs, act, rew, end, trunc, reset, hx0, cx0, vboot))
+
+
+def mf_ac_step_phase(agent, smi):
+    """The model-free actor-critic step (training.make_model_free_ac_train_step, the
+    trainer config's AC optimizer and loss, warmup 0) on a deep copy of the agent's
+    actor-critic, B = 32, T = 15, bf16 compute, on seeded recorded tensors with resets:
+    counts set to 0, one warm-up and MF_STEPS timed steps, counts read and held to the
+    trunk's module tree (the B * T frames encoded in one call), then one step profiled
+    and one under the sync debug mode (no synchronisation allowed); every parameter
+    moves. Returns (signatures, result)."""
+    import copy
+    from dataclasses import replace
+
+    import torch
+    from diamond_tpu_torch.config import TrainerConfig
+    from diamond_tpu_torch.training import (OptimizerSpec, TrainState,
+                                            make_model_free_ac_train_step)
+
+    tcfg = TrainerConfig().actor_critic
+    spec = replace(OptimizerSpec.from_cfg(tcfg.optimizer, tcfg.training), lr_warmup_steps=0)
+    tx = spec.build()
+    ac = copy.deepcopy(agent.actor_critic)
+    net = ac.net
+    before = {n: p.detach().clone() for n, p in net.named_parameters()}
+    state = TrainState.create(net, tx)
+    step = make_model_free_ac_train_step(ac, tx, tcfg.actor_critic_loss)
+    t = tcfg.actor_critic_loss.backup_every
+    rec = recorded_tensors(agent.cfg, BATCH, t, torch.Generator().manual_seed(SEED + 13),
+                           "cuda")
+
+    count_reset()
+    state, m = step(state, *rec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(MF_STEPS):
+        state, m = step(state, *rec)
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / MF_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    steps = 1 + MF_STEPS
+    launches, shapes, per_step = per_step_launches(steps)
+    check_launches(per_step, expected_launches(net.encoder), "model-free step")
+    metrics = {k: v.item() for k, v in m.items()}
+    check(all(map(math.isfinite, metrics.values())), f"model-free step: non-finite {metrics}")
+    moved = check_all_moved_and_finite(net, before, "model-free step")
+    fps = BATCH * t / secs
+    log(f"[mf_ac_step] B={BATCH} T={t} recorded frames, bf16 actor-critic, warmup 0: "
+        f"{secs * 1e3:.1f} ms per step, {fps:.1f} training env_frames/s over {MF_STEPS} "
+        f"steps after one warm-up, peak memory {peak / 2**30:.2f} GiB, every parameter moved "
+        f"(largest change {moved:.3g}), on {smi}")
+    log("[mf_ac_step] metrics of the last step: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in metrics.items()))
+    log(f"[launches] mf_ac_step, per step (as the module tree says): "
+        + ", ".join(f"{k} {v:g}" for k, v in per_step.items() if v))
+    profile = profile_run(lambda: step(state, *rec), "mf_ac_step", "model-free AC step")
+    log_unprofiled_idle(profile, secs * 1e3, "model-free AC step")
+    check_conv_backward(profile, per_step["conv3x3_dgrad"], "model-free step")
+    check_norm_backward(profile, "model-free step")
+    syncs = sync_points(lambda: step(state, *rec))
+    log(f"[sync] model-free AC step: {sum(syncs.values())} host-device synchronisations "
+        f"{syncs}")
+    check(not syncs, f"model-free step: host-device synchronisations {syncs}")
+    return shapes, dict(step_ms=secs * 1e3, fps=fps, peak_memory_bytes=peak,
+                        launches=launches, launches_per_step=per_step, metrics=metrics,
+                        profile=profile, sync_points=syncs, max_weight_change=moved,
+                        steps=steps)
+
+
+def grads_close(card: dict, cpu: dict, limit: float, what: str) -> tuple:
+    """Each leaf's gradient on the card within ``limit`` of the CPU leaf's largest
+    |value|; returns (the worst share, its leaf)."""
+    shares = {k: (card[k] - cpu[k]).abs().max().item() / max(cpu[k].abs().max().item(), 1e-30)
+              for k in cpu}
+    worst = max(shares, key=shares.get)
+    check(shares[worst] <= limit, f"{what}: {worst}'s gradient differs by "
+          f"{shares[worst]:.3g} of its largest |value| (limit {limit})")
+    return shares[worst], worst
+
+
+def rew_end_step_reference(agent):
+    """A B=2, T=6 f32 rew/end loss and its gradients (segment 0 dies at step 2 with its
+    final frame known and is padded after, segment 1 is padded before its start) at
+    full width on the card (kernels, TF32 off) and on the CPU (plain versions), same
+    weights: the loss within 1e-4 relative, the confusion matrices equal, every leaf's
+    gradient within 1e-3 of the CPU leaf's largest |value|."""
+    import torch
+    from diamond_tpu_torch.models import RewEndModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = agent.cfg.rew_end_model
+    g = torch.Generator().manual_seed(SEED + 14)
+    b, t, s, c = 2, 6, cfg.img_size, cfg.img_channels
+    obs = torch.rand((b, t, s, s, c), generator=g) * 2 - 1
+    final = torch.rand((b, s, s, c), generator=g) * 2 - 1
+    act = torch.randint(0, agent.cfg.num_actions, (b, t), generator=g)
+    rew = torch.randint(-1, 2, (b, t), generator=g).float()
+    end = torch.zeros((b, t), dtype=torch.int32)
+    mask = torch.ones((b, t), dtype=torch.bool)
+    end[0, 2], mask[0, 3:], mask[1, 0] = 1, False, False
+    obs[~mask] = 0
+    has_final = torch.tensor([True, False])
+    outs = []
+    for dev in ("cuda", "cpu"):
+        m = RewEndModel(cfg, torch.float32)
+        m.net.load_state_dict(agent.rew_end_model.net.state_dict())
+        m.net.to(dev)
+        with torch.enable_grad():
+            loss, met = m.loss(*(x.to(dev) for x in (obs, act, rew, end, mask, final,
+                                                     has_final)))
+            loss.backward()
+        outs.append((loss.item(), {k: v.cpu() for k, v in met["confusion_matrix"].items()},
+                     {n: q.grad.cpu() for n, q in m.net.named_parameters()}))
+    (lg, cg, gg), (lc, cc, gc) = outs
+    check(abs(lg - lc) <= 1e-4 * abs(lc), f"rew/end step reference: loss {lg} vs {lc}")
+    check(all(torch.equal(cg[k], cc[k]) for k in cc), "rew/end step reference: confusion "
+          "matrices differ card vs CPU")
+    share, worst = grads_close(gg, gc, 1e-3, "rew/end step reference")
+    log(f"[reference] rew/end step B={b} T={t} f32 card vs CPU plain: loss {lg:.7g} vs "
+        f"{lc:.7g}, confusion matrices equal; every gradient within {share:.3g} of its leaf's "
+        f"largest |value| ({worst}; limit 1e-3)")
+    return dict(loss_card=lg, loss_cpu=lc, max_grad_share=share, worst_leaf=worst)
+
+
+def mf_ac_step_reference(agent):
+    """A B=2, T=3 f32 model-free AC loss and its gradients on recorded tensors with a
+    reset, at full width on the card (kernels, TF32 off) and on the CPU (plain
+    versions), same weights: the loss within 1e-4 relative, every leaf's gradient
+    within 1e-3 of the CPU leaf's largest |value|."""
+    import torch
+    from diamond_tpu_torch.config import TrainerConfig
+    from diamond_tpu_torch.models.actor_critic import ActorCritic
+    from diamond_tpu_torch.training import model_free_ac_loss
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    loss_cfg = TrainerConfig().actor_critic.actor_critic_loss
+    rec = list(recorded_tensors(agent.cfg, 2, 3, torch.Generator().manual_seed(SEED + 15),
+                                "cpu"))
+    rec[5][0, 1] = 1.0  # a reset
+    outs = []
+    for dev in ("cuda", "cpu"):
+        ac = ActorCritic(agent.cfg.actor_critic, torch.float32)
+        ac.net.load_state_dict(agent.actor_critic.net.state_dict())
+        ac.net.to(dev)
+        with torch.enable_grad():
+            loss, _ = model_free_ac_loss(ac, loss_cfg, *(x.to(dev) for x in rec))
+            loss.backward()
+        outs.append((loss.item(), {n: q.grad.cpu() for n, q in ac.net.named_parameters()}))
+    (lg, gg), (lc, gc) = outs
+    check(abs(lg - lc) <= 1e-4 * max(1.0, abs(lc)),
+          f"model-free step reference: loss {lg} vs {lc}")
+    share, worst = grads_close(gg, gc, 1e-3, "model-free step reference")
+    log(f"[reference] model-free AC step B=2 T=3 f32 card vs CPU plain: loss {lg:.7g} vs "
+        f"{lc:.7g}; every gradient within {share:.3g} of its leaf's largest |value| "
+        f"({worst}; limit 1e-3)")
+    return dict(loss_card=lg, loss_cpu=lc, max_grad_share=share, worst_leaf=worst)
 
 
 def num_sites(coll: dict) -> int:
@@ -1535,11 +1950,15 @@ def main() -> int:
                                                                     rgen, smi)
     # the denoiser train step, on its own copy of the denoiser
     shapes["denoiser_step"], results["denoiser_step"] = denoiser_step_phase(agent, smi)
+    # the rew/end train step fed from the device store, on its own copy of the model
+    shapes["rew_end_step"], results["rew_end_step"] = rew_end_step_phase(agent, smi)
+    # the model-free actor-critic step on recorded tensors, on its own copy
+    shapes["mf_ac_step"], results["mf_ac_step"] = mf_ac_step_phase(agent, smi)
 
-    launches = {p: results[p]["launches"] for p in ("bf16", "int8", "ac_step", "denoiser_step")}
-    runs = {"bf16": 1 + TIMED_ROLLOUTS, "int8": 1 + TIMED_ROLLOUTS,
-            "ac_step": results["ac_step"]["steps"],
-            "denoiser_step": results["denoiser_step"]["steps"]}
+    paths = ("bf16", "int8", "ac_step", "denoiser_step", "rew_end_step", "mf_ac_step")
+    launches = {p: results[p]["launches"] for p in paths}
+    runs = {p: 1 + TIMED_ROLLOUTS if p in ("bf16", "int8") else results[p]["steps"]
+            for p in paths}
     rows, details = compare_kernels(shapes, launches, runs)
     for r in rows:
         log(f"[kernel] {r['name']}: {r['launches']} launches on the {r['path']} path, "
@@ -1562,6 +1981,8 @@ def main() -> int:
         results["reference_ac_gradient"] = ac_gradient_check(agent)
         results["reference_ac_step"] = ac_step_reference(agent, st, pool, wm_cfg)
     results["reference_denoiser_step"] = denoiser_step_reference(agent)
+    results["reference_rew_end_step"] = rew_end_step_reference(agent)
+    results["reference_mf_ac_step"] = mf_ac_step_reference(agent)
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(

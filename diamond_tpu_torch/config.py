@@ -187,9 +187,12 @@ class RuntimeConfig:
     """The trainer.yaml ``tpu`` options the port follows. ``int8_rollout``: calibrate
     the denoiser and the rew/end model (``DiffusionSampler.calibrate``,
     ``RewEndModel.calibrate``) so that the rollout runs the static int8 path on the site
-    kinds of ``int8_sites`` ('all' or a comma list of conv3x3, conv1x1, dense, lstm)."""
+    kinds of ``int8_sites`` ('all' or a comma list of conv3x3, conv1x1, dense, lstm).
+    ``grad_acc_sum``: with ``grad_acc_steps`` > 1 the update takes the sum of the
+    micro-gradients, not their mean (``models/agent.py`` ``AdamWClip``)."""
 
     compute_dtype: str = "bfloat16"
     pool_policy_feats: bool = True
     int8_rollout: bool = True
     int8_sites: str = "conv3x3,conv1x1"
+    grad_acc_sum: bool = False

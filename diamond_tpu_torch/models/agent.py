@@ -5,12 +5,13 @@ CPU tests pass ``device="cpu"``).
 
 ``configure_opt`` is the JAX package's optax chain: global-norm clipping, then AdamW
 with the minGPT decay split as a mask on the parameter names (the flax paths) and a
-linear warmup from 0.
+linear warmup from 0; with ``grad_acc_steps`` k > 1 the trainer's ``optax.MultiSteps``
+around it (and ``optax.scale(k)`` in front under ``grad_acc_sum``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
@@ -65,12 +66,23 @@ class AdamWClip:
     lr_warmup_steps), b1=0.9, b2=0.999, eps, weight_decay, mask=_decay_mask)), built by
     ``configure_opt``: ``init`` makes the torch optimizer of a module (``torch.optim.AdamW``,
     decoupled decay, eps outside the square root, one parameter group with decay and one
-    without), ``update`` applies one step of the chain to the gradients in ``.grad``."""
+    without), ``update`` applies one step of the chain to the gradients in ``.grad``.
+
+    With ``grad_acc_steps`` k > 1 it is ``optax.MultiSteps`` of that chain, as the
+    JAX package's trainer builds it (``accumulate``): the micro-gradients' running mean
+    (optax's form, acc + (g - acc) / (n + 1)) is kept, every k-th micro-step the chain
+    updates the weights with it (with ``grad_acc_sum`` with k times it, the sum, so that
+    clipping acts on the sum), and the other micro-steps leave the weights and the AdamW
+    moments as they are. The warmup counts the chain's updates, not the micro-steps."""
 
     def __init__(self, lr: float, weight_decay: float, eps: float,
-                 max_grad_norm: Optional[float] = None, lr_warmup_steps: int = 0) -> None:
+                 max_grad_norm: Optional[float] = None, lr_warmup_steps: int = 0,
+                 grad_acc_steps: int = 1, grad_acc_sum: bool = False) -> None:
+        if grad_acc_steps < 1:
+            raise ValueError(f"grad_acc_steps must be at least 1, got {grad_acc_steps}")
         self.lr, self.weight_decay, self.eps = lr, weight_decay, eps
         self.max_grad_norm, self.lr_warmup_steps = max_grad_norm, lr_warmup_steps
+        self.grad_acc_steps, self.grad_acc_sum = grad_acc_steps, grad_acc_sum
 
     def lr_at(self, step: int) -> float:
         """The learning rate of update ``step`` (0-based): optax's linear schedule from 0."""
@@ -86,17 +98,27 @@ class AdamWClip:
         return torch.optim.AdamW([g for g in groups if g["params"]], lr=self.lr,
                                  betas=(0.9, 0.999), eps=self.eps)
 
+    @staticmethod
+    def grads(opt: torch.optim.AdamW) -> List[torch.Tensor]:
+        """The parameters' ``.grad``, a zero gradient where a parameter has none (optax
+        counts a missing gradient as zero)."""
+        params: List[torch.Tensor] = [p for g in opt.param_groups for p in g["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        return [p.grad for p in params]
+
+    @staticmethod
+    def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))))
+
     def update(self, opt: torch.optim.AdamW, step: int) -> torch.Tensor:
         """Clip the gradients to ``max_grad_norm`` by their global norm, step the
         optimizer at ``lr_at(step)`` and clear the gradients. A parameter without a
         gradient counts as a zero gradient, as in optax. Returns the global norm before
         clipping, on the device; nothing here waits for the device."""
-        params: List[torch.Tensor] = [p for g in opt.param_groups for p in g["params"]]
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        grads = self.grads(opt)
+        norm = self.global_norm(grads)
         if self.max_grad_norm is not None:
             # optax: g where norm < max, else g / norm * max
             scale = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
@@ -108,9 +130,37 @@ class AdamWClip:
         opt.zero_grad(set_to_none=True)
         return norm
 
+    def accumulate(self, opt: torch.optim.AdamW, acc: Optional[List[torch.Tensor]],
+                   micro_step: int) -> List[torch.Tensor]:
+        """Micro-step ``micro_step`` (0-based, counted over the whole run) of
+        ``optax.MultiSteps``: fold the gradients in ``.grad`` into the running mean
+        ``acc`` (zeros where it is None) and clear them; on every k-th micro-step update
+        the weights with the mean (times k under ``grad_acc_sum``) by ``update`` at the
+        chain's own count, micro_step // k. Returns the new running mean (zeros after an
+        update, as optax resets it)."""
+        k = self.grad_acc_steps
+        grads = self.grads(opt)
+        if acc is None:
+            acc = [torch.zeros_like(g) for g in grads]
+        n = micro_step % k
+        delta = torch._foreach_sub(grads, acc)
+        torch._foreach_div_(delta, float(n + 1))
+        torch._foreach_add_(acc, delta)
+        if n < k - 1:
+            opt.zero_grad(set_to_none=True)
+            return acc
+        params = [p for g in opt.param_groups for p in g["params"]]
+        for p, a in zip(params, acc):
+            p.grad = a * float(k) if self.grad_acc_sum else a
+        self.update(opt, micro_step // k)
+        torch._foreach_zero_(acc)
+        return acc
+
 
 def configure_opt(lr: float, weight_decay: float, eps: float,
-                  max_grad_norm: Optional[float] = None,
-                  lr_warmup_steps: int = 0) -> AdamWClip:
-    """AdamW with masked weight decay, global-norm clipping and linear LR warmup."""
-    return AdamWClip(lr, weight_decay, eps, max_grad_norm, lr_warmup_steps)
+                  max_grad_norm: Optional[float] = None, lr_warmup_steps: int = 0,
+                  grad_acc_steps: int = 1, grad_acc_sum: bool = False) -> AdamWClip:
+    """AdamW with masked weight decay, global-norm clipping and linear LR warmup; with
+    ``grad_acc_steps`` > 1, gradient accumulation (``AdamWClip.accumulate``)."""
+    return AdamWClip(lr, weight_decay, eps, max_grad_norm, lr_warmup_steps, grad_acc_steps,
+                     grad_acc_sum)

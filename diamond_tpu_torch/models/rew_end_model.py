@@ -1,7 +1,14 @@
-"""Reward (3-class) + episode-end (2-class) predictor, inference half
-(diamond_tpu/models/rew_end_model.py). Conv encoder over concat(obs, next_obs),
-FiLM-conditioned on an action embedding, flattened HWC into an LSTM over time, two-layer
-head -> 5 logits split 3/2. The training loss comes with the training slice.
+"""Reward (3-class) + episode-end (2-class) predictor (diamond_tpu/models/rew_end_model.py).
+Conv encoder over concat(obs, next_obs), FiLM-conditioned on an action embedding,
+flattened HWC into an LSTM over time, two-layer head -> 5 logits split 3/2.
+
+The training loss (``loss``): where a segment's episode died and its true last frame is
+known, that frame replaces the padding frame after the death (a one-hot where-swap at
+the first end); the reward targets are sign(rew) + 1; both cross-entropies are masked
+by the padding and averaged over max(sum of the mask, 1); the confusion matrices weigh
+each step by the mask. The JAX package recomputes the forward in the backward pass
+(``jax.checkpoint``), a memory choice that leaves the numbers as they are; the port
+keeps the forward's activations (the step's peak memory on the card is in PERF.md).
 
 ``calibrate`` installs the static int8 collection (ops/quant.py); the rollout's rew/end
 step (envs/world_model_env.py) is the only caller that enters the int8 scope, so the
@@ -10,7 +17,7 @@ IC burn-in and everything else stay unquantized.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -18,6 +25,7 @@ import torch.nn.functional as F
 
 from ..config import RewEndModelConfig
 from ..ops import quant
+from ..utils import multiclass_confusion_matrix
 from .blocks import Conv3x3, Downsample, Embed, QDense, ResBlocks
 from .lstm import LSTM, Carry
 
@@ -87,7 +95,10 @@ class RewEndModel:
         self.net = RewEndNet(cfg, dtype)
 
     def initial_carry(self, batch: int, device=None) -> Carry:
+        """Zeros, on ``device`` or else on the device of the net's parameters."""
         d = self.cfg.lstm_dim
+        if device is None:
+            device = self.net.head_2.kernel.device
         return (torch.zeros((batch, d), device=device), torch.zeros((batch, d), device=device))
 
     def predict_rew_end(self, obs: torch.Tensor, act: torch.Tensor, next_obs: torch.Tensor,
@@ -97,6 +108,57 @@ class RewEndModel:
         if carry is None:
             carry = self.initial_carry(obs.shape[0], obs.device)
         return self.net(obs, act, next_obs, carry)
+
+    def loss(self, batch_obs: torch.Tensor, batch_act: torch.Tensor, batch_rew: torch.Tensor,
+             batch_end: torch.Tensor, batch_mask: torch.Tensor, final_obs: torch.Tensor,
+             has_final_obs: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """The masked cross-entropy training loss and its metrics (on the device, no
+        graph): ``loss_rew``, ``loss_end``, ``loss_total`` and ``confusion_matrix``
+        {"rew": (3, 3), "end": (2, 2)}, rows the true classes.
+
+        batch_obs: (B, T, H, W, C) float [-1, 1]; batch_{act,rew,end,mask}: (B, T);
+        final_obs: (B, H, W, C) float, the true last frame of each segment's episode;
+        has_final_obs: (B,) bool, that frame is valid."""
+        obs = batch_obs[:, :-1]
+        act = batch_act[:, :-1]
+        next_obs = batch_obs[:, 1:]
+        rew = batch_rew[:, :-1]
+        end = batch_end[:, :-1]
+        mask = batch_mask[:, :-1]
+
+        # where the segment died and its final frame is known, that frame replaces the
+        # padding after the first end (argmax takes the first maximum)
+        t = end.shape[1]
+        dead = (end.int().sum(dim=1) > 0) & has_final_obs.bool()
+        onehot = F.one_hot(end.int().argmax(dim=1), t).bool() & dead[:, None]
+        next_obs = torch.where(onehot[:, :, None, None, None], final_obs[:, None].to(
+            next_obs.dtype), next_obs)
+
+        logits_rew, logits_end, _ = self.predict_rew_end(obs, act, next_obs)
+
+        target_rew = torch.sign(rew).long() + 1  # {-1, 0, 1} -> {0, 1, 2}
+        target_end = end.long()
+        m = mask.float()
+        denom = m.sum().clamp(min=1.0)
+
+        def masked_ce(logits, targets):
+            logp = torch.log_softmax(logits, dim=-1)
+            nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+            return (nll * m).sum() / denom
+
+        loss_rew = masked_ce(logits_rew, target_rew)
+        loss_end = masked_ce(logits_end, target_end)
+        loss = loss_rew + loss_end
+        metrics = {
+            "loss_rew": loss_rew.detach(),
+            "loss_end": loss_end.detach(),
+            "loss_total": loss.detach(),
+            "confusion_matrix": {
+                "rew": multiclass_confusion_matrix(logits_rew.detach(), target_rew, 3, m),
+                "end": multiclass_confusion_matrix(logits_end.detach(), target_end, 2, m),
+            },
+        }
+        return loss, metrics
 
     @torch.no_grad()
     def calibrate(self, obs: torch.Tensor, act: torch.Tensor, next_obs: torch.Tensor,

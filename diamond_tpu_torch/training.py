@@ -1,6 +1,7 @@
 """Train steps (diamond_tpu/training.py): ``(state, inputs) -> (state, metrics)``, the
 gradient, the clipping, the AdamW update and the LR schedule on the device, with no
-host-device synchronisation.
+host-device synchronisation. Every step takes gradient accumulation (``grad_acc_steps``
+> 1, the trainer's ``optax.MultiSteps``; ``apply_update``).
 
 The denoiser step takes the autoregressive EDM loss (models/denoiser.py ``loss``) of a
 batch of uint8 segments over its ``T - n`` windows and backpropagates it through the
@@ -13,14 +14,22 @@ grad, the policy's trunk and heads with grad, and one backward pass takes the RE
 + value + entropy loss of the rollout into the actor-critic's parameters through the
 hand-written backward kernels (K2's, K3's data and weight gradients).
 
-Not ported yet: gradient accumulation (``grad_acc_steps`` > 1, optax ``MultiSteps``),
-the model-free AC step, the rew/end step and the two-stage (upsampler) denoiser.
+The rew/end step takes the masked cross-entropy loss of a batch of segments
+(models/rew_end_model.py ``loss``, with the final-obs swap) and backpropagates it
+through the encoder on the same kernels (K1's and K2's backwards, K3's data and weight
+gradients; ``conv_in``'s input needs no data gradient) and through the LSTM and heads
+in plain autograd. The model-free actor-critic step recomputes the policy over recorded
+uint8 observations: the conv trunk encodes all B * T frames in one call (it has no
+recurrence, and its norms are per sample, so the numbers are those of one call a
+step), then the LSTM head runs step by step with its carry gated by 1 - reset_mask.
+
+Not ported yet: the two-stage (upsampler) denoiser.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -32,18 +41,23 @@ from .envs.world_model_env import ICPool, ImagState, ImaginationEngine, RolloutD
 from .models.actor_critic import ActorCritic
 from .models.agent import AdamWClip, configure_opt
 from .models.denoiser import Denoiser, DenoiserDraws
+from .models.rew_end_model import RewEndModel
 
 
 @dataclass
 class TrainState:
     """One model's optimization state: the module whose parameters are trained, its
-    torch optimizer (the AdamW moments), and the updates made so far. ``step`` drives
-    the LR warmup and stays on the host, so setting the learning rate waits for nothing
-    (the JAX package keeps it on the device inside jit)."""
+    torch optimizer (the AdamW moments), and the steps made so far. ``step`` counts the
+    calls of the train step (micro-steps under gradient accumulation, as the JAX
+    package's ``state.step``); the LR warmup counts the optimizer's updates, step // k.
+    It stays on the host, so setting the learning rate waits for nothing (the JAX
+    package keeps it on the device inside jit). ``acc``: the running mean of the
+    micro-gradients under gradient accumulation, else None."""
 
     net: nn.Module
     opt_state: torch.optim.Optimizer
     step: int = 0
+    acc: Optional[List[torch.Tensor]] = None
 
     @classmethod
     def create(cls, net: nn.Module, tx: AdamWClip) -> "TrainState":
@@ -57,25 +71,35 @@ class OptimizerSpec:
     eps: float
     max_grad_norm: Optional[float]
     lr_warmup_steps: int
+    grad_acc_steps: int = 1
+    grad_acc_sum: bool = False
 
     @classmethod
-    def from_cfg(cls, opt_cfg: Any, train_cfg: Any) -> "OptimizerSpec":
-        """From the config's ``<model>.optimizer`` and ``<model>.training`` sections."""
-        if train_cfg.grad_acc_steps != 1:
-            raise ValueError("grad_acc_steps > 1 is not ported yet")
+    def from_cfg(cls, opt_cfg: Any, train_cfg: Any, grad_acc_sum: bool = False
+                 ) -> "OptimizerSpec":
+        """From the config's ``<model>.optimizer`` and ``<model>.training`` sections and
+        ``tpu.grad_acc_sum`` (``RuntimeConfig``)."""
         return cls(lr=float(opt_cfg.lr), weight_decay=float(opt_cfg.weight_decay),
                    eps=float(opt_cfg.eps), max_grad_norm=train_cfg.max_grad_norm,
-                   lr_warmup_steps=int(train_cfg.lr_warmup_steps))
+                   lr_warmup_steps=int(train_cfg.lr_warmup_steps),
+                   grad_acc_steps=int(train_cfg.grad_acc_steps), grad_acc_sum=grad_acc_sum)
 
     def build(self) -> AdamWClip:
         return configure_opt(self.lr, self.weight_decay, self.eps, self.max_grad_norm,
-                             self.lr_warmup_steps)
+                             self.lr_warmup_steps, self.grad_acc_steps, self.grad_acc_sum)
 
 
 def apply_update(tx: AdamWClip, state: TrainState) -> Tuple[TrainState, torch.Tensor]:
-    """One update from the gradients in the parameters' ``.grad``; returns the new state
-    and the global gradient norm before clipping (on the device)."""
-    grad_norm = tx.update(state.opt_state, state.step)
+    """One train step's update from the gradients in the parameters' ``.grad``: the
+    chain's update, or under gradient accumulation the micro-step
+    (``AdamWClip.accumulate``). Returns the new state and the global norm of this
+    step's gradient before clipping (on the device), as the JAX package's
+    ``_apply_update`` reports it."""
+    if tx.grad_acc_steps == 1:
+        grad_norm = tx.update(state.opt_state, state.step)
+    else:
+        grad_norm = tx.global_norm(tx.grads(state.opt_state))
+        state.acc = tx.accumulate(state.opt_state, state.acc, state.step)
     state.step += 1
     return state, grad_norm
 
@@ -140,6 +164,50 @@ def make_denoiser_eval_step(denoiser: Denoiser, sigma_cfg: SigmaDistributionConf
 
 
 # ---------------------------------------------------------------------------
+# Reward/end model
+
+
+def _rew_end_loss(rew_end_model: RewEndModel, batch: DeviceBatch):
+    return rew_end_model.loss(obs_to_float(batch.obs), batch.act, batch.rew, batch.end,
+                              batch.mask_padding, obs_to_float(batch.final_obs),
+                              batch.has_final_obs)
+
+
+def make_rew_end_train_step(rew_end_model: RewEndModel, tx: AdamWClip) -> Callable:
+    """The rew/end step: ``step(state, batch) -> (state, metrics)``. It takes
+    ``rew_end_model.loss`` of the segments in ``batch`` (the final-obs swap included),
+    backpropagates it into ``state.net`` (the rew/end model's module) and updates it.
+    The metrics (``loss_rew``, ``loss_end``, ``loss_total``, ``confusion_matrix``,
+    ``grad_norm_before_clip``) stay on the device."""
+
+    def step(state: TrainState, batch: DeviceBatch
+             ) -> Tuple[TrainState, Dict[str, Any]]:
+        if state.net is not rew_end_model.net:
+            raise ValueError("make_rew_end_train_step: state.net must be the rew/end model's "
+                             "module")
+        state.opt_state.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            loss, metrics = _rew_end_loss(rew_end_model, batch)
+            loss.backward()
+        state, grad_norm = apply_update(tx, state)
+        metrics["grad_norm_before_clip"] = grad_norm
+        return state, metrics
+
+    return step
+
+
+def make_rew_end_eval_step(rew_end_model: RewEndModel) -> Callable:
+    """``step(batch) -> metrics``: the rew/end loss's metrics of a batch under no grad
+    (on the device)."""
+
+    def step(batch: DeviceBatch) -> Dict[str, Any]:
+        with torch.no_grad():
+            return _rew_end_loss(rew_end_model, batch)[1]
+
+    return step
+
+
+# ---------------------------------------------------------------------------
 # Actor-critic
 
 
@@ -183,5 +251,61 @@ def make_ac_train_step(engine: ImaginationEngine, actor_critic: ActorCritic, tx:
         state, grad_norm = apply_update(tx, state)
         metrics["grad_norm_before_clip"] = grad_norm
         return state, st, pool, metrics
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Actor-critic, model-free (training.model_free)
+
+
+def model_free_ac_loss(actor_critic: ActorCritic, loss_cfg: ActorCriticLossConfig,
+                       obs_u8: torch.Tensor, act: torch.Tensor, rew: torch.Tensor,
+                       end: torch.Tensor, trunc: torch.Tensor, reset_mask: torch.Tensor,
+                       hx0: torch.Tensor, cx0: torch.Tensor, val_bootstrap: torch.Tensor):
+    """The model-free step's loss (training.py:212-253 of the JAX package): the policy
+    recomputed over the recorded frames obs_u8 (B, T, H, W, C) uint8 from the carry
+    (hx0, cx0), the carry multiplied by 1 - reset_mask[:, t] before step t, and the
+    REINFORCE + value + entropy loss with the recorded ``val_bootstrap``. The trunk
+    encodes all B * T frames in one call. Returns (loss, metrics)."""
+    b, t = obs_u8.shape[:2]
+    feats = actor_critic.encode(obs_to_float(obs_u8.reshape(b * t, *obs_u8.shape[2:])))
+    feats = feats.reshape(b, t, -1)
+    carry = (hx0, cx0)
+    logits, vals = [], []
+    for i in range(t):
+        gate = 1.0 - reset_mask[:, i].float()[:, None]
+        out = actor_critic.head(feats[:, i], (carry[0] * gate, carry[1] * gate))
+        carry = out.carry
+        logits.append(out.logits_act)
+        vals.append(out.val)
+    return actor_critic.loss_from_rollout(act, rew, end.float(), trunc.float(),
+                                          torch.stack(logits, dim=1), torch.stack(vals, dim=1),
+                                          val_bootstrap, loss_cfg)
+
+
+def make_model_free_ac_train_step(actor_critic: ActorCritic, tx: AdamWClip,
+                                  loss_cfg: ActorCriticLossConfig) -> Callable:
+    """The model-free actor-critic step: ``step(state, obs_u8, act, rew, end, trunc,
+    reset_mask, hx0, cx0, val_bootstrap) -> (state, metrics)`` on tensors the env loop
+    recorded (all (B, T) but obs_u8 (B, T, H, W, C) and the carry (B, lstm_dim)). It
+    takes ``model_free_ac_loss``, backpropagates it into ``state.net`` (the
+    actor-critic's module) and updates it; the metrics stay on the device."""
+
+    def step(state: TrainState, obs_u8: torch.Tensor, act: torch.Tensor, rew: torch.Tensor,
+             end: torch.Tensor, trunc: torch.Tensor, reset_mask: torch.Tensor,
+             hx0: torch.Tensor, cx0: torch.Tensor, val_bootstrap: torch.Tensor
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        if state.net is not actor_critic.net:
+            raise ValueError("make_model_free_ac_train_step: state.net must be the "
+                             "actor-critic's module")
+        state.opt_state.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            loss, metrics = model_free_ac_loss(actor_critic, loss_cfg, obs_u8, act, rew, end,
+                                               trunc, reset_mask, hx0, cx0, val_bootstrap)
+            loss.backward()
+        state, grad_norm = apply_update(tx, state)
+        metrics["grad_norm_before_clip"] = grad_norm
+        return state, metrics
 
     return step

@@ -719,3 +719,67 @@ def test_int8_wrappers_refuse_a_gradient_under_grad_mode():
             with pytest.raises(RuntimeError, match="no gradient"):
                 call(xa, sa)
 
+
+
+# The rew/end step's shapes: B * (T - 1) = 32 * 18 = 576 samples through the encoder at
+# 32 channels (one group), 64x64 down to 8x8; conv_in reads concat(obs, next_obs), Cin 6.
+REW_END_B = 576
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rew_end_step_shapes_match_plain_versions(dtype):
+    """The backward kernels at the rew/end step's shapes against their plain versions,
+    each repeating bit for bit: K1's backward at C = 32 (one group) and 576 samples from
+    64x64 to 8x8 (FiLM rows in the run's dtype); K2's backward at B = 576, 8x8x32 without
+    SiLU (the attention pre-norms: its last block sums 576 rows); the weight gradient
+    with the bias at Cin = 6 (conv_in, 64x64) and 32 -> 32 at strides 1 and 2; the
+    stride-2 data gradient at Cout = 32. bf16 within 1/64 of max(1, max |plain|); f32
+    (TF32 off) dx within 1e-4, the affine, FiLM and conv gradients within 1e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diamond_tpu_torch.ops import (adagn_silu_bwd, adagn_silu_bwd_plain,
+                                       adagn_silu_with_moments, conv3x3_dgrad,
+                                       conv3x3_dgrad_plain, conv3x3_wgrad, conv3x3_wgrad_plain,
+                                       groupnorm_silu_bwd, groupnorm_silu_bwd_plain,
+                                       groupnorm_silu_with_moments)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    f32 = dt == torch.float32
+    g = torch.Generator(device="cuda").manual_seed(21)
+
+    def same_bits(first, again):
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, r) for a, r in zip(first, again))
+
+    for h in (64, 32, 16, 8):
+        x, ss, _, _ = _norm_inputs(REW_END_B, h, 32, dt, g, dt)
+        dy = torch.randn(x.shape, device="cuda", generator=g).to(dt)
+        _, mom = adagn_silu_with_moments(x, ss, 1)
+        got = adagn_silu_bwd(x, dy, ss, 1, True, mom)
+        for k, (a, r) in enumerate(zip(got, adagn_silu_bwd_plain(x, dy, ss, 1, True))):
+            _bwd_close(a, r, 1 / 64 if not f32 else 1e-4 if k == 0 else 1e-3)
+        same_bits(got, adagn_silu_bwd(x, dy, ss, 1, True, mom))
+    x, _, sc, bi = _norm_inputs(REW_END_B, 8, 32, dt, g)
+    dy = torch.randn(x.shape, device="cuda", generator=g).to(dt)
+    _, mom = groupnorm_silu_with_moments(x, sc, bi, 1, False)
+    got = groupnorm_silu_bwd(x, dy, sc, bi, 1, False, mom)
+    for k, (a, r) in enumerate(zip(got, groupnorm_silu_bwd_plain(x, dy, sc, bi, 1, False))):
+        _bwd_close(a, r, (1e-4 if k == 0 else 1e-3) if f32 else 1 / 64)
+    same_bits(got, groupnorm_silu_bwd(x, dy, sc, bi, 1, False, mom))
+    tol = 1e-3 if f32 else 1 / 64
+    for h, cin, s in ((64, 6, 1), (64, 32, 1), (64, 32, 2), (16, 32, 2), (8, 32, 1)):
+        x = torch.randn(REW_END_B, h, h, cin, device="cuda", generator=g).to(dt)
+        dy = torch.randn(REW_END_B, (h - 1) // s + 1, (h - 1) // s + 1, 32, device="cuda",
+                         generator=g).to(dt)
+        dw, db = conv3x3_wgrad(x, dy, s, with_bias=True)
+        _bwd_close(dw, conv3x3_wgrad_plain(x, dy, s), tol)
+        _bwd_close(db, dy.sum(dim=(0, 1, 2), dtype=torch.float32), 1e-3)
+        same_bits((dw, db), conv3x3_wgrad(x, dy, s, with_bias=True))
+        if cin == 32:
+            k = (torch.randn(3, 3, cin, 32, device="cuda", generator=g) / (9 * cin) ** .5).to(dt)
+            dx = conv3x3_dgrad(dy, k, s, (h, h))
+            _bwd_close(dx, conv3x3_dgrad_plain(dy, k, s, (h, h)), tol)
+            same_bits((dx,), (conv3x3_dgrad(dy, k, s, (h, h)),))

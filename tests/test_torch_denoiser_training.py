@@ -82,6 +82,17 @@ def _segments(seed, t_total, mask_rows=()):
     return obs, act, mask
 
 
+def _device_batch(obs_u8, act, mask):
+    """The port's DeviceBatch of the segments; the fields the denoiser does not read are
+    zeros."""
+    b, t_total = act.shape
+    return DeviceBatch(obs=t(obs_u8), act=t(act), rew=torch.zeros((b, t_total)),
+                       end=torch.zeros((b, t_total), dtype=torch.int32),
+                       trunc=torch.zeros((b, t_total), dtype=torch.int32), mask_padding=t(mask),
+                       final_obs=torch.zeros((b, IMG, IMG, C), dtype=torch.uint8),
+                       has_final_obs=torch.zeros((b,), dtype=torch.bool))
+
+
 def jax_draws(key, windows, b=B):
     """The port's DenoiserDraws for the JAX ``Denoiser.loss`` with ``key``: its splits,
     window by window (denoiser.py ``loss``, ``sample_sigma_training``, ``apply_noise``)."""
@@ -191,7 +202,7 @@ def test_train_steps_match_jax(fresh, warmup, steps):
     tx = configure_opt(spec.lr, spec.weight_decay, spec.eps, 0.5, warmup)
     state = TrainState.create(p.inner_model, tx)
     step = make_denoiser_train_step(p, tx, SIGMA)
-    batch = DeviceBatch(obs=t(obs_u8), act=t(act), mask_padding=t(mask))
+    batch = _device_batch(obs_u8, act, mask)
     state_j = JTrainState.create(jax.tree_util.tree_map(jnp.array, v["params"]), tx_j)
     old = {n: q.detach().clone() for n, q in p.inner_model.named_parameters()}
     obs_j = jnp.asarray(obs_u8, jnp.float32) / 255.0 * 2.0 - 1.0
@@ -218,7 +229,7 @@ def test_eval_step_is_the_loss_without_a_graph(fresh):
     j, v, p = fresh
     obs_u8, act, mask = _segments(70, NC + 2)
     draws = jax_draws(jax.random.PRNGKey(3), 2)
-    batch = DeviceBatch(obs=t(obs_u8), act=t(act), mask_padding=t(mask))
+    batch = _device_batch(obs_u8, act, mask)
     m = make_denoiser_eval_step(p, SIGMA)(batch, draws=draws)
     loss, _ = p.loss(obs_to_float(t(obs_u8)), t(act), t(mask), SIGMA, draws=draws)
     assert not m["loss_denoising"].requires_grad

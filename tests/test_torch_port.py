@@ -41,9 +41,10 @@ def test_default_config_equals_trainer_yaml():
     assert asdict(wm.diffusion_sampler) == dict(cfg.world_model_env.diffusion_sampler)
     assert tc.IMG_SIZE == cfg.env.train.size
     rt = tc.RuntimeConfig()
-    assert (rt.compute_dtype, rt.pool_policy_feats, rt.int8_rollout, rt.int8_sites) == \
+    assert (rt.compute_dtype, rt.pool_policy_feats, rt.int8_rollout, rt.int8_sites,
+            rt.grad_acc_sum) == \
         (cfg.tpu.compute_dtype, cfg.tpu.pool_policy_feats, cfg.tpu.int8_rollout,
-         cfg.tpu.int8_sites)
+         cfg.tpu.int8_sites, cfg.tpu.grad_acc_sum)
 
 
 SMALL = dict(
@@ -173,6 +174,9 @@ def test_port_imports_no_jax_and_no_yaml():
     modules = ["diamond_tpu_torch", "diamond_tpu_torch.config", "diamond_tpu_torch.kernels",
                "diamond_tpu_torch.ops", "diamond_tpu_torch.ops.quant", "diamond_tpu_torch.models",
                "diamond_tpu_torch.data.episode", "diamond_tpu_torch.data.segment",
+               "diamond_tpu_torch.data.dataset", "diamond_tpu_torch.data.batch_sampler",
+               "diamond_tpu_torch.data.device_store", "diamond_tpu_torch.data.traverser",
+               "diamond_tpu_torch.utils", "diamond_tpu_torch.training",
                "diamond_tpu_torch.envs.world_model_env",
                "diamond_tpu_torch.interop.jax_vars"]
     code = ("import importlib, sys\n"

@@ -6,12 +6,15 @@ from __future__ import annotations
 
 import functools
 import math
+import os
 
 import jax
 import numpy as np
 import torch
 
 from diamond_tpu_torch.interop.jax_vars import load_variables
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def random_variables(init, *args, seed: int, **kwargs):
