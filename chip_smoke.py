@@ -2,8 +2,9 @@
 """Chip smoke test of diamond_tpu_torch: the imagination rollout of the full-size Breakout
 agent on one NVIDIA GPU, bf16 and static int8 (the production default), the
 actor-critic train step in imagination on the int8 world model, the denoiser train
-step, the rew/end train step fed from the device episode store, and the model-free
-actor-critic step, through the port's hand-written CUDA kernels.
+step, the rew/end train step fed from the device episode store, the model-free
+actor-critic step, and three epochs of the whole trainer, through the port's
+hand-written CUDA kernels.
 
     python3 chip_smoke.py              # from the repo root, on a machine with a CUDA GPU
 
@@ -66,6 +67,20 @@ result line):
      on seeded recorded tensors with resets, on a deep copy of the actor-critic: counts
      set to 0, one warm-up and MF_STEPS timed steps, launches held to the trunk's module
      tree, one step profiled, none synchronising, every weight moved;
+  6f. the trainer (diamond_tpu_torch.trainer.Trainer, what `python -m
+     diamond_tpu_torch.main` runs) on env=fake at the full default widths (B = 32 for
+     every component, horizon 15, 3 Euler steps, bf16, int8 rollout, device store), cut
+     to three epochs (TRAINER_OVERRIDES): counts set to 0, the run, the counts read
+     (every kernel > 0); the wall seconds of each part of each epoch (collection and
+     its env steps/s, each component's ms per step, IC-pool builds and swaps and
+     pool_refill_wait_s, recalibration, test collection, evaluation, checkpoint), the
+     final-protocol metrics; the rew/end windows that reach an episode's end (> 0);
+     every AC step on int8 weights folded after the last world-model step; the last
+     background IC pool against a synchronous rebuild from its ids and weight snapshot
+     (1/64 of the largest |value|); the agent snapshot loaded into a fresh Agent (equal
+     outputs); a resumed Trainer equal to the last saved state bit for bit; the
+     host-device syncs of one step of each component (none for the denoiser and rew/end
+     steps, the pool pointer's read for the AC step);
   7. each kernel against its plain PyTorch version at every shape and dtype its paths
      sent it (the backward kernels: those of the four train steps), and in f32
      (TF32 off), with device times, bounds and library yardsticks (the weight gradient
@@ -113,35 +128,38 @@ OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 # and train steps, the first of them the one its line of the kernels table reports)
 KERNELS = {
     "adagn_silu": ("diamond_tpu_torch/kernels/csrc/fused_norms.cu",
-                   "diamond_tpu/ops/fused_norms.py:97", ("bf16", "denoiser_step", "rew_end_step")),
+                   "diamond_tpu/ops/fused_norms.py:97",
+                   ("bf16", "denoiser_step", "rew_end_step", "trainer")),
     "groupnorm_silu": ("diamond_tpu_torch/kernels/csrc/fused_norms.cu",
                        "diamond_tpu/ops/fused_norms.py:65",
-                       ("bf16", "denoiser_step", "rew_end_step", "mf_ac_step")),
+                       ("bf16", "denoiser_step", "rew_end_step", "mf_ac_step", "trainer")),
     "conv3x3": ("diamond_tpu_torch/kernels/csrc/conv3x3.cu", "diamond_tpu/ops/conv3x3.py:33",
-                ("bf16", "denoiser_step", "rew_end_step", "mf_ac_step")),
+                ("bf16", "denoiser_step", "rew_end_step", "mf_ac_step", "trainer")),
     "adagn_silu_q8": ("diamond_tpu_torch/kernels/csrc/fused_q8.cu",
-                      "diamond_tpu/ops/fused_q8.py:55", ("int8",)),
+                      "diamond_tpu/ops/fused_q8.py:55", ("int8", "trainer")),
     "groupnorm_silu_q8": ("diamond_tpu_torch/kernels/csrc/fused_q8.cu",
-                          "diamond_tpu/ops/fused_q8.py:55", ("int8",)),
+                          "diamond_tpu/ops/fused_q8.py:55", ("int8", "trainer")),
     "conv3x3_int8": ("diamond_tpu_torch/kernels/csrc/conv3x3_q8.cu",
-                     "diamond_tpu/ops/quant.py:161", ("int8",)),
+                     "diamond_tpu/ops/quant.py:161", ("int8", "trainer")),
     # the backward of K2's custom_vjp (the XLA VJP of _gn_silu_ref on the TPU)
     "groupnorm_silu_bwd": ("diamond_tpu_torch/kernels/csrc/gn_bwd.cu",
                            "diamond_tpu/ops/fused_norms.py:155",
-                           ("ac_step", "denoiser_step", "rew_end_step", "mf_ac_step")),
+                           ("ac_step", "denoiser_step", "rew_end_step", "mf_ac_step", "trainer")),
     # K3's gradients (XLA's VJP of the 3x3 conv on the TPU): the data gradient at stride 1
     # (K3 on dy) and at stride 2 (a kernel of its own), the weight and bias gradients
     "conv3x3_dgrad": ("diamond_tpu_torch/kernels/csrc/conv3x3.cu",
                       "diamond_tpu/ops/conv3x3.py:33",
-                      ("ac_step", "denoiser_step", "rew_end_step", "mf_ac_step")),
+                      ("ac_step", "denoiser_step", "rew_end_step", "mf_ac_step", "trainer")),
     "conv3x3_dgrad_s2": ("diamond_tpu_torch/kernels/csrc/conv3x3_dgrad_s2.cu",
-                         "diamond_tpu/ops/conv3x3.py:33", ("denoiser_step", "rew_end_step")),
+                         "diamond_tpu/ops/conv3x3.py:33",
+                         ("denoiser_step", "rew_end_step", "trainer")),
     "conv3x3_wgrad": ("diamond_tpu_torch/kernels/csrc/conv3x3_wgrad.cu",
                       "diamond_tpu/ops/conv3x3.py:33",
-                      ("ac_step", "denoiser_step", "rew_end_step", "mf_ac_step")),
+                      ("ac_step", "denoiser_step", "rew_end_step", "mf_ac_step", "trainer")),
     # the backward of K1's custom_vjp (the XLA VJP of _adagn_silu_ref on the TPU)
     "adagn_silu_bwd": ("diamond_tpu_torch/kernels/csrc/gn_bwd.cu",
-                       "diamond_tpu/ops/fused_norms.py:187", ("denoiser_step", "rew_end_step")),
+                       "diamond_tpu/ops/fused_norms.py:187",
+                       ("denoiser_step", "rew_end_step", "trainer")),
 }
 BACKWARD = ("groupnorm_silu_bwd", "conv3x3_dgrad", "conv3x3_wgrad")
 # the backward kernels, whose sums run in a fixed order: two calls give the same bits
@@ -178,7 +196,7 @@ TOL = {"float32": {"adagn_silu": 1e-4, "groupnorm_silu": 1e-4, "conv3x3": 1e-3,
 CODE_SHARE = 1e-3
 PER_RUN = {"bf16": "rollout", "int8": "rollout", "ac_step": "AC step",
            "denoiser_step": "denoiser step", "rew_end_step": "rew/end step",
-           "mf_ac_step": "model-free AC step"}
+           "mf_ac_step": "model-free AC step", "trainer": "trainer epoch"}
 # The H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and dense
 # operations/s by type; the norms' element-wise work runs on the CUDA cores in f32.
 HBM_BYTES_S = 3.35e12
@@ -1836,6 +1854,254 @@ def mf_ac_step_reference(agent):
     return dict(loss_card=lg, loss_cpu=lc, max_grad_share=share, worst_leaf=worst)
 
 
+TRAINER_OVERRIDES = [
+    # env=fake at its published size (64x64, 100-step episodes); the full default widths
+    "env=fake", f"common.seed={SEED}",
+    # cut to about a minute: 3 epochs (1,000 initial steps, two collecting epochs of 500,
+    # one final epoch), few train steps, a pool of 1,024 (POOL_SIZE), 2 test episodes an
+    # epoch and 4 at the end
+    "collection.train.first_epoch.min=1000", "collection.train.first_epoch.max=1000",
+    "collection.train.steps_per_epoch=500", "collection.train.num_steps_total=2000",
+    "training.num_final_epochs=1",
+    "denoiser.training.steps_first_epoch=20", "denoiser.training.steps_per_epoch=10",
+    "rew_end_model.training.steps_first_epoch=20", "rew_end_model.training.steps_per_epoch=10",
+    "actor_critic.training.steps_first_epoch=4", "actor_critic.training.steps_per_epoch=2",
+    "world_model_env.num_batches_to_preload=32",
+    "evaluation.every=1", "collection.test.num_episodes=2",
+    "collection.test.num_final_episodes=4",
+]
+
+
+def states_equal(a: dict, b: dict, what: str) -> int:
+    """Two ``Trainer.state_dict()``s bit for bit: counters, the datasets' index arrays,
+    every weight, AdamW moment and step. Returns the tensors compared."""
+    import numpy as np
+    import torch
+
+    n = 0
+
+    def walk(x, y, path):
+        nonlocal n
+        if isinstance(x, dict):
+            check(isinstance(y, dict) and set(x) == set(y), f"{what}: keys differ at {path}")
+            for k in x:
+                walk(x[k], y[k], f"{path}/{k}")
+        elif isinstance(x, (list, tuple)):
+            check(len(x) == len(y), f"{what}: lengths differ at {path}")
+            for i, (u, v) in enumerate(zip(x, y)):
+                walk(u, v, f"{path}/{i}")
+        elif isinstance(x, torch.Tensor):
+            check(torch.equal(x.cpu(), y.cpu()), f"{what}: {path} differs")
+            n += 1
+        elif isinstance(x, np.ndarray):
+            check(np.array_equal(x, y), f"{what}: {path} differs")
+        else:
+            check(x == y, f"{what}: {path}: {x!r} != {y!r}")
+
+    walk(a, b, "")
+    return n
+
+
+def trainer_phase(smi):
+    """The port's trainer (``diamond_tpu_torch.trainer.Trainer``, what
+    ``python -m diamond_tpu_torch.main`` runs) on env=fake at the full default widths, cut
+    to three epochs (TRAINER_OVERRIDES): the wall seconds of each part of each epoch, the
+    launches of every kernel over the run, and the checks of what the loop adds to the
+    train steps: rew/end windows that reach an episode's end, the background IC pool
+    against a rebuild, int8 recalibration after each world-model step, resume bit for
+    bit, and the agent snapshot loaded back. Returns (signatures, result)."""
+    import copy
+    import tempfile
+
+    import torch
+    from diamond_tpu_torch import ops
+    from diamond_tpu_torch.config import load_config
+    from diamond_tpu_torch.models import Agent
+    from diamond_tpu_torch.ops import quant
+    from diamond_tpu_torch.trainer import Trainer
+    from diamond_tpu_torch.utils import get_path_agent_ckpt
+
+    tmp = tempfile.TemporaryDirectory(prefix="diamond_trainer_")
+    run_dir = Path(tmp.name) / "run"
+    run_dir.mkdir()
+    cfg = load_config(TRAINER_OVERRIDES)
+    log(f"[trainer] config: {TRAINER_OVERRIDES}; batch {cfg.denoiser.training.batch_size} "
+        f"for every component, horizon {cfg.world_model_env.horizon}, "
+        f"{cfg.world_model_env.diffusion_sampler.num_steps_denoising} Euler steps, "
+        f"{cfg.tpu.compute_dtype}, int8_rollout {cfg.tpu.int8_rollout}, device_dataset "
+        f"{cfg.tpu.device_dataset}, pool {cfg.world_model_env.num_batches_to_preload * 32}")
+    check(cfg.tpu.int8_rollout and cfg.tpu.device_dataset, "the trainer's defaults changed")
+    count_reset()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, Path(__file__).resolve().parent, run_dir=run_dir, device="cuda")
+    init_s = time.perf_counter() - t0
+
+    saved = {}
+    save = trainer.save_checkpoint
+
+    def save_and_keep():
+        save()
+        saved["state"] = copy.deepcopy(trainer.state_dict())
+    trainer.save_checkpoint = save_and_keep
+
+    windows = {"ends": torch.zeros((), dtype=torch.long, device="cuda"), "all": 0}
+    rew_end_step = trainer._rew_end_step
+
+    def counting_rew_end_step(state, batch):
+        # the loss's swap: a window whose first T - 1 steps hold an end, with a final frame
+        dead = (batch.end[:, :-1].sum(dim=1) > 0) & batch.has_final_obs
+        windows["ends"] += dead.sum()
+        windows["all"] += batch.end.shape[0]
+        return rew_end_step(state, batch)
+    trainer._rew_end_step = counting_rew_end_step
+
+    fresh = {"checked": 0, "stale": 0, "epochs": set(), "during_build": 0, "check_s": {}}
+    ac_step = trainer._ac_step
+
+    def checking_ac_step(*a, **k):
+        # the rollout's int8 weights folded from the weights of the last world-model step
+        ts = trainer.train_states
+        ok = (trainer._quant_step == ts["denoiser"].step
+              and trainer._r_quant_step == ts["rew_end_model"].step)
+        if trainer.epoch not in fresh["epochs"]:  # one tensor check an epoch, timed apart
+            torch.cuda.synchronize()  # the queued work before it stays in the AC's time
+            t0 = time.perf_counter()
+            fresh["epochs"].add(trainer.epoch)
+            ok = ok and quant.folded_from_current_weights(trainer.agent.denoiser.inner_model) \
+                and quant.folded_from_current_weights(trainer.agent.rew_end_model.net)
+            fresh["check_s"][trainer.epoch] = time.perf_counter() - t0
+        fresh["checked"] += 1
+        fresh["stale"] += not ok
+        fresh["during_build"] += trainer._pool_manager.building()
+        return ac_step(*a, **k)
+    trainer._ac_step = checking_ac_step
+
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {name: getattr(ops, name).launches for name in KERNELS}
+    shapes = {name: dict(getattr(ops, name).shapes) for name in KERNELS}
+    log(f"[trainer] {trainer.epoch} epochs in {run_s:.1f} s (the trainer made in "
+        f"{init_s:.1f} s) on {smi}")
+    ic, *epochs, fc = trainer.timings
+    log(f"[trainer] initial collect: {ic['collect_steps']} env steps in {ic['collect_s']:.2f} s "
+        f"({ic['collect_steps'] / ic['collect_s']:.1f} env steps/s)")
+    for t in epochs:
+        parts = []
+        if "collect_s" in t:
+            parts.append(f"collect {t['collect_s']:.2f} s ({t['collect_steps']} env steps, "
+                         f"{t['collect_steps'] / t['collect_s']:.1f} env steps/s)")
+        # the AC part less this phase's int8 check (made in its first step)
+        t["actor_critic_s"] -= fresh["check_s"].get(t["epoch"], 0.0)
+        for name in ("denoiser", "rew_end_model", "actor_critic"):
+            if f"{name}_s" in t:
+                parts.append(f"{name} {t[name + '_s']:.2f} s ({t[name + '_steps']} steps, "
+                             f"{t[name + '_s'] / t[name + '_steps'] * 1e3:.1f} ms/step)")
+        parts.append(f"the int8 check {fresh['check_s'].get(t['epoch'], 0.0):.3f} s apart")
+        parts.append(f"recalibration {t.get('recalibration_s', 0.0):.3f} s")
+        parts.append(f"pool builds {t.get('pool_builds')}, swaps {t.get('pool_swaps')}, "
+                     f"pool_refill_wait_s {t.get('pool_refill_wait_s', 0.0):.4f}")
+        parts.append(f"test collect {t.get('test_collect_s', 0.0):.2f} s, eval "
+                     f"{t.get('eval_s', 0.0):.2f} s, checkpoint {t['checkpoint_s']:.2f} s")
+        log(f"[trainer] epoch {t['epoch']}: " + "; ".join(parts))
+    final = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()
+             if "final_return_mean" in line][-1]
+    protocol = {k: final[k] for k in sorted(final) if k.startswith("final")}
+    log(f"[trainer] final collect {fc['test_collect_s']:.2f} s; "
+        f"final protocol: {protocol}")
+    log(f"[launches] trainer, over the run: {launches}")
+    for name in KERNELS:
+        check(launches[name] > 0, f"{name} was not launched during the trainer's run")
+    check(trainer.epoch == 3, f"the trainer ran {trainer.epoch} epochs, not 3")
+    check(final["final_num_episodes"] == 4, "the final protocol did not collect 4 episodes")
+
+    # rew/end windows that reach an end: the final-obs swap in timed steps
+    ends = int(windows["ends"])
+    log(f"[trainer] rew/end windows that reach an episode's end (the final-obs swap): "
+        f"{ends} of {windows['all']}")
+    check(ends > 0, "no rew/end window reached an episode's end")
+
+    # int8 recalibration after each world-model step
+    d_counts = [c["denoiser_step"] for c in trainer.calibrations]
+    log(f"[trainer] int8 recalibrations at (epoch, denoiser step, rew/end step): "
+        f"{[(c['epoch'], c['denoiser_step'], c['rew_end_step']) for c in trainer.calibrations]}; "
+        f"{fresh['checked']} AC steps, {fresh['stale']} on stale int8 weights")
+    check(fresh["stale"] == 0 and fresh["checked"] == 8, "an AC step ran on stale int8 weights")
+    check(d_counts == [20, 30, 40], f"recalibrated at denoiser steps {d_counts}")
+
+    # the background pool against a rebuild from the same ids and snapshot
+    pm = trainer._pool_manager
+    bg = pm._next_pool
+    check(bg is not None, "no background pool was left to check")
+    check(fresh["during_build"] > 0, "no AC step ran while a pool was being built")
+    sync_pool = pm.build_pool(ids=pm.last_ids)
+    torch.cuda.synchronize()
+    check(torch.equal(bg.obs, sync_pool.obs) and torch.equal(bg.act, sync_pool.act),
+          "the background pool's segments differ from the rebuild's")
+    pool_err = {}
+    for k in ("hx", "cx", "feats"):
+        a, b = getattr(bg, k).float(), getattr(sync_pool, k).float()
+        pool_err[k] = (a - b).abs().max().item() / max(1e-30, b.abs().max().item())
+        check(pool_err[k] <= 1 / 64, f"the background pool's {k} differs from the rebuild's")
+    log(f"[trainer] IC pool: {pm.builds - 1} builds ({pm.background_builds} in the background, "
+        f"{fresh['during_build']} AC steps dispatched while one ran), {pm.swaps} swaps; the last "
+        f"background pool against a synchronous rebuild from its ids and weight snapshot: "
+        f"obs and act equal, max |diff| / max |value| {pool_err}")
+
+    # the agent snapshot loads back into a fresh agent with equal outputs
+    path = get_path_agent_ckpt(run_dir / "checkpoints", -1)
+    fresh_agent = Agent(trainer.agent.cfg, trainer._compute_dtype, device="cuda")
+    fresh_agent.load(path)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    acfg = trainer.agent.cfg
+    size, n = cfg.env.train.size, acfg.denoiser.inner_model.num_steps_conditioning
+    obs = torch.rand((4, n, size, size, 3), generator=g, device="cuda") * 2 - 1
+    act = torch.randint(0, acfg.num_actions, (4, n), generator=g, device="cuda")
+    carry = (torch.zeros(4, acfg.actor_critic.lstm_dim, device="cuda"),) * 2
+    outs = []
+    for a in (trainer.agent, fresh_agent):
+        ac = a.actor_critic.head(a.actor_critic.encode(obs[:, -1]), carry)
+        lr, le, _ = a.rew_end_model.predict_rew_end(obs[:, :-1], act[:, :-1], obs[:, 1:])
+        den = a.denoiser.denoise(obs[:, -1], 1.0,
+                                 obs.movedim(1, 3).reshape(4, size, size, 3 * n), act)
+        outs.append([ac.logits_act, ac.val, lr, le, den])
+    check(all(torch.equal(x, y) for x, y in zip(*outs)),
+          "the loaded snapshot's outputs differ from the trainer's agent's")
+    log(f"[trainer] the agent snapshot {path.name} loads into a fresh Agent: policy, rew/end "
+        f"and denoiser outputs equal bit for bit")
+    # resume: the saved state, bit for bit
+    cfg2 = load_config(TRAINER_OVERRIDES + ["common.resume=True"])
+    t0 = time.perf_counter()
+    trainer2 = Trainer(cfg2, Path(__file__).resolve().parent, run_dir=run_dir, device="cuda")
+    n = states_equal(saved["state"], trainer2.state_dict(), "resume")
+    check(trainer2.train_dataset.num_steps == trainer.train_dataset.num_steps, "resume: dataset")
+    log(f"[trainer] resume: a second Trainer with common.resume=True equals the last saved "
+        f"state bit for bit ({n} tensors: weights, AdamW moments and steps; counters; both "
+        f"datasets' index) in {time.perf_counter() - t0:.1f} s")
+    del trainer2
+
+    # host-device syncs per step of each component
+    syncs = {name: sync_points(fn) for name, fn in (
+        ("actor_critic", trainer.ac_train_step), ("denoiser", trainer.denoiser_train_step),
+        ("rew_end_model", trainer.rew_end_train_step))}
+    log(f"[sync] trainer steps: {syncs}")
+    check(not syncs["denoiser"] and not syncs["rew_end_model"],
+          "a denoiser or rew/end step synchronised")
+    check(sum(syncs["actor_critic"].values()) <= 1, "the AC step synchronised more than once")
+
+    result = dict(run_s=run_s, init_s=init_s, timings=trainer.timings, final_protocol=final,
+                  launches=launches, rew_end_windows_with_end=ends,
+                  rew_end_windows=windows["all"], calibrations=trainer.calibrations,
+                  pool=dict(builds=pm.builds - 1, background=pm.background_builds,
+                            swaps=pm.swaps, steps_during_build=fresh["during_build"],
+                            err=pool_err),
+                  sync_points=syncs, epochs=trainer.epoch)
+    del trainer, fresh_agent
+    tmp.cleanup()
+    return shapes, result
+
+
 def num_sites(coll: dict) -> int:
     return sum(num_sites(v) if isinstance(v, dict) else k == "act_scale" for k, v in coll.items())
 
@@ -1856,6 +2122,7 @@ def main() -> int:
     from diamond_tpu_torch.models import Agent
     from diamond_tpu_torch.ops import quant
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     # the rollouts serve and are measured with no grad; the AC step enables it itself
     torch.set_grad_enabled(False)
@@ -1954,10 +2221,14 @@ def main() -> int:
     shapes["rew_end_step"], results["rew_end_step"] = rew_end_step_phase(agent, smi)
     # the model-free actor-critic step on recorded tensors, on its own copy
     shapes["mf_ac_step"], results["mf_ac_step"] = mf_ac_step_phase(agent, smi)
+    # the trainer, three epochs of the whole loop on models of its own
+    shapes["trainer"], results["trainer"] = trainer_phase(smi)
 
-    paths = ("bf16", "int8", "ac_step", "denoiser_step", "rew_end_step", "mf_ac_step")
+    paths = ("bf16", "int8", "ac_step", "denoiser_step", "rew_end_step", "mf_ac_step",
+             "trainer")
     launches = {p: results[p]["launches"] for p in paths}
-    runs = {p: 1 + TIMED_ROLLOUTS if p in ("bf16", "int8") else results[p]["steps"]
+    runs = {p: 1 + TIMED_ROLLOUTS if p in ("bf16", "int8")
+            else results[p]["epochs"] if p == "trainer" else results[p]["steps"]
             for p in paths}
     rows, details = compare_kernels(shapes, launches, runs)
     for r in rows:
@@ -1984,6 +2255,7 @@ def main() -> int:
     results["reference_rew_end_step"] = rew_end_step_reference(agent)
     results["reference_mf_ac_step"] = mf_ac_step_reference(agent)
 
+    log(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, results=results, kernels=rows, details=details), indent=1, default=str))

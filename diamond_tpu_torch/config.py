@@ -1,11 +1,19 @@
-"""The full-size default configuration, as dataclass defaults.
+"""The trainer's whole configuration, as dataclass defaults, and its override parser.
 
-These carry the values of diamond_tpu/configs/agent/default.yaml (the DIAMOND Atari
-agent), the ``world_model_env`` section of diamond_tpu/configs/trainer.yaml and its
-three models' ``training``/``optimizer`` sections with the actor-critic loss, the Atari
-frame size (configs/env/atari.yaml ``train.size``) and the ``tpu`` options the port
-honours. The port reads no YAML: its machine may have no PyYAML, and a test holds these
-defaults equal to ``diamond_tpu.config.load_config("trainer")``.
+These carry the values of diamond_tpu/configs/trainer.yaml with its group files
+(agent/default.yaml, the DIAMOND Atari agent; env/atari.yaml and env/fake.yaml): every
+section the port's trainer reads, the ``tpu`` options it honours among them. The port
+reads no YAML: its machine may have no PyYAML, and a test holds ``load_config`` equal
+to ``diamond_tpu.config.load_config("trainer", overrides)`` on every key the port has.
+
+``load_config(overrides)`` takes the CLI's ``key=value`` strings: values through
+``ast.literal_eval`` (``null``/``true``/``false`` as YAML spells them, anything else
+that is no Python literal stays a string), the group choices ``env=atari|fake`` and
+``agent=default``. The values the YAML derives by interpolation (the rew/end model's
+``seq_length``, the ``sample_weights`` that follow the denoiser's, ``env.test`` from
+``env.train``, the models' frame size and channels) are derived after the overrides,
+unless an override set them itself. A run saves its resolved config as JSON
+(``save_config``); resume reads it back (``load_config(overrides, base=...)``).
 
 The class names and fields are those of the JAX package's config dataclasses
 (models/inner_model.py, denoiser.py, diffusion_sampler.py, rew_end_model.py,
@@ -14,8 +22,12 @@ actor_critic.py, agent.py, envs/world_model_env.py).
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import List, Optional
+import ast
+import copy
+import json
+from dataclasses import asdict, dataclass, field, fields, is_dataclass
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence
 
 IMG_SIZE = 64               # configs/env/atari.yaml train.size
 NUM_ACTIONS_BREAKOUT = 4    # BreakoutNoFrameskip-v4's action set (bench.py NUM_ACTIONS)
@@ -196,3 +208,298 @@ class RuntimeConfig:
     int8_rollout: bool = True
     int8_sites: str = "conv3x3,conv1x1"
     grad_acc_sum: bool = False
+    device_dataset: bool = True                   # the device episode store
+    device_dataset_capacity: Optional[int] = None  # steps; None: from the collection budget
+    profile_dir: Optional[str] = None             # a torch.profiler trace of epoch 1
+
+
+# ---------------------------------------------------------------------------
+# The trainer's other sections (trainer.yaml)
+
+
+@dataclass
+class WandbConfig:
+    mode: str = "disabled"
+    project: Optional[str] = None
+    entity: Optional[str] = None
+    name: Optional[str] = None
+    group: Optional[str] = None
+    tags: Optional[List[str]] = None
+    notes: Optional[str] = None
+
+
+@dataclass
+class InitializationConfig:
+    path_to_ckpt: Optional[str] = None
+    load_denoiser: bool = True
+    load_rew_end_model: bool = True
+    load_actor_critic: bool = True
+
+
+@dataclass
+class CommonConfig:
+    seed: Optional[int] = None
+    resume: bool = False
+
+
+@dataclass
+class CheckpointingConfig:
+    save_agent_every: int = 5
+    num_to_keep: Optional[int] = 11
+
+
+@dataclass
+class FirstEpochConfig:
+    min: int = 5000
+    max: Optional[int] = 10000
+    threshold_rew: int = 10
+
+
+@dataclass
+class TrainCollectionConfig:
+    num_envs: int = 1
+    epsilon: float = 0.01
+    num_steps_total: int = 100000
+    first_epoch: FirstEpochConfig = field(default_factory=FirstEpochConfig)
+    steps_per_epoch: int = 100
+
+
+@dataclass
+class TestCollectionConfig:
+    num_envs: int = 1
+    num_episodes: int = 4
+    epsilon: float = 0.0
+    num_final_episodes: int = 100
+
+
+@dataclass
+class CollectionConfig:
+    train: TrainCollectionConfig = field(default_factory=TrainCollectionConfig)
+    test: TestCollectionConfig = field(default_factory=TestCollectionConfig)
+
+
+@dataclass
+class StaticDatasetConfig:
+    path: Optional[str] = None
+    ignore_sample_weights: bool = True
+
+
+@dataclass
+class TrainingLoopConfig:
+    """trainer.yaml ``training``. ``num_workers_data_loaders``: the host prefetcher's
+    producer threads (0: synchronous), read only without the device store.
+    ``wm_only`` (the two-stage world model's mode) is refused when set."""
+
+    should: bool = True
+    num_final_epochs: int = 50
+    cache_in_ram: bool = True
+    num_workers_data_loaders: int = 2
+    model_free: bool = False
+    wm_only: bool = False
+
+
+@dataclass
+class EvaluationConfig:
+    should: bool = True
+    every: int = 10
+
+
+@dataclass
+class EnvSplitConfig:
+    id: str = "BreakoutNoFrameskip-v4"
+    done_on_life_loss: bool = True
+    size: int = IMG_SIZE
+    max_episode_steps: Optional[int] = None
+
+
+@dataclass
+class EnvConfig:
+    """configs/env/atari.yaml; ``env_group("fake")`` gives fake.yaml's."""
+
+    train: EnvSplitConfig = field(default_factory=EnvSplitConfig)
+    test: EnvSplitConfig = field(default_factory=lambda: EnvSplitConfig(done_on_life_loss=False))
+    keymap: str = "atari/BreakoutNoFrameskip-v4"
+
+
+# ---------------------------------------------------------------------------
+# The root config and its overrides
+
+
+@dataclass
+class Config:
+    """trainer.yaml as the port reads it: ``agent`` is configs/agent/default.yaml (its
+    ``num_actions`` is set from the env by the trainer), ``env`` the chosen env group."""
+
+    wandb: WandbConfig = field(default_factory=WandbConfig)
+    initialization: InitializationConfig = field(default_factory=InitializationConfig)
+    common: CommonConfig = field(default_factory=CommonConfig)
+    checkpointing: CheckpointingConfig = field(default_factory=CheckpointingConfig)
+    collection: CollectionConfig = field(default_factory=CollectionConfig)
+    static_dataset: StaticDatasetConfig = field(default_factory=StaticDatasetConfig)
+    training: TrainingLoopConfig = field(default_factory=TrainingLoopConfig)
+    tpu: RuntimeConfig = field(default_factory=RuntimeConfig)
+    evaluation: EvaluationConfig = field(default_factory=EvaluationConfig)
+    world_model_env: WorldModelEnvConfig = field(default_factory=WorldModelEnvConfig)
+    denoiser: DenoiserTrainerConfig = field(default_factory=DenoiserTrainerConfig)
+    rew_end_model: RewEndTrainerConfig = field(default_factory=RewEndTrainerConfig)
+    actor_critic: ActorCriticTrainerConfig = field(default_factory=ActorCriticTrainerConfig)
+    env: EnvConfig = field(default_factory=EnvConfig)
+    agent: AgentConfig = field(default_factory=AgentConfig)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return asdict(self)
+
+
+ENV_GROUPS = ("atari", "fake")
+_TWO_STAGE = ("the two-stage (upsampler) world model is not ported yet (ROADMAP.md, queue 1 "
+              "item 7)")
+
+
+def _refusal(key: str, value: Any) -> Optional[str]:
+    """Why an override is refused, or None."""
+    if (key, value) in (("agent", "csgo"), ("training.wm_only", True)) \
+            or key.split(".")[0] == "upsampler" or key.startswith("agent.upsampler"):
+        return _TWO_STAGE
+    if key.startswith("tpu.distributed"):
+        return "the trainer runs on one card (tpu.distributed)"
+    return None
+
+
+# (target, source): the YAML interpolations, applied after the overrides unless an
+# override set the target (trainer.yaml:160, 179, 183, 196; agent/default.yaml; env/*)
+DERIVED = (
+    ("rew_end_model.training.sample_weights", "denoiser.training.sample_weights"),
+    ("actor_critic.training.sample_weights", "denoiser.training.sample_weights"),
+    ("agent.rew_end_model.img_channels", "agent.denoiser.inner_model.img_channels"),
+    ("agent.actor_critic.img_channels", "agent.denoiser.inner_model.img_channels"),
+    ("agent.rew_end_model.img_size", "env.train.size"),
+    ("agent.actor_critic.img_size", "env.train.size"),
+    ("env.test.id", "env.train.id"),
+    ("env.test.size", "env.train.size"),
+)
+
+
+def env_group(name: str) -> EnvConfig:
+    """The env group's defaults (configs/env/<name>.yaml)."""
+    if name == "atari":
+        return EnvConfig()
+    if name == "fake":
+        return EnvConfig(
+            train=EnvSplitConfig(id="Fake-v0", done_on_life_loss=False, max_episode_steps=100),
+            test=EnvSplitConfig(id="Fake-v0", done_on_life_loss=False, max_episode_steps=100),
+            keymap="fake")
+    raise ValueError(f"Unknown env group option {name!r}; available: {list(ENV_GROUPS)}")
+
+
+def parse_value(raw: str) -> Any:
+    """A CLI value: a Python literal, YAML's null/true/false (any case), else the
+    string itself."""
+    raw = raw.strip()
+    low = raw.lower()
+    if low in ("null", "none", "~"):
+        return None
+    if low in ("true", "false"):
+        return low == "true"
+    try:
+        return ast.literal_eval(raw)
+    except (ValueError, SyntaxError):
+        return raw
+
+
+def _get(cfg: Any, path: str) -> Any:
+    node = cfg
+    for part in path.split("."):
+        node = node[int(part)] if isinstance(node, list) else getattr(node, part)
+    return node
+
+
+def _set(cfg: Any, path: str, value: Any) -> None:
+    *parents, leaf = path.split(".")
+    try:
+        node = _get(cfg, ".".join(parents)) if parents else cfg
+    except (AttributeError, IndexError, ValueError):
+        raise KeyError(f"Override targets unknown config key {path!r}") from None
+    if isinstance(node, list):
+        node[int(leaf)] = value
+        return
+    if not is_dataclass(node) or leaf not in {f.name for f in fields(node)}:
+        raise KeyError(f"Override targets unknown config key {path!r}")
+    if is_dataclass(getattr(node, leaf)):
+        raise KeyError(f"Override {path!r} names a section; set its keys one by one")
+    setattr(node, leaf, value)
+
+
+def apply_dict(cfg: Any, d: Dict[str, Any]) -> Any:
+    """Set a nested dict's values onto a config in place (the saved JSON onto the
+    defaults)."""
+    for k, v in d.items():
+        cur = getattr(cfg, k)
+        if is_dataclass(cur):
+            apply_dict(cur, v)
+        else:
+            setattr(cfg, k, v)
+    if isinstance(cfg, AgentConfig):
+        cfg.__post_init__()
+    return cfg
+
+
+def load_config(overrides: Sequence[str] = (), base: Optional[Dict[str, Any]] = None
+                ) -> Config:
+    """The config of ``overrides`` (``key=value`` strings, group choices included).
+    ``base``: a saved, resolved config (a resumed run's) to start from instead of the
+    defaults; nothing is derived then, as a resolved YAML derives nothing again."""
+    group_env = "atari"
+    values = []
+    for ov in overrides:
+        if "=" not in ov:
+            raise ValueError(f"Override must be key=value, got {ov!r}")
+        key, _, raw = ov.partition("=")
+        key, raw = key.strip().lstrip("+"), raw.strip()
+        why = _refusal(key, raw if key == "agent" else parse_value(raw))
+        if why:
+            raise ValueError(f"{ov}: {why}")
+        if key == "env":
+            env_group(raw)  # refuses an unknown group
+            group_env = raw
+        elif key == "agent":
+            if raw != "default":
+                raise ValueError(f"Unknown agent group option {raw!r}; available: ['default']")
+        else:
+            values.append((key, parse_value(raw)))
+
+    cfg = Config()
+    if base is not None:
+        apply_dict(cfg, copy.deepcopy(base))
+    else:
+        cfg.env = env_group(group_env)
+    for key, value in values:
+        _set(cfg, key, copy.deepcopy(value))
+    if base is None:
+        derive(cfg, {k for k, _ in values}, group_env)
+    cfg.agent.__post_init__()
+    return cfg
+
+
+def derive(cfg: Config, overridden: set, group_env: str) -> None:
+    """The YAML's interpolated values, from their sources, where no override set them."""
+    targets = list(DERIVED)
+    if group_env == "fake":
+        targets.append(("env.test.max_episode_steps", "env.train.max_episode_steps"))
+    for target, source in targets:
+        if target not in overridden:
+            _set(cfg, target, copy.deepcopy(_get(cfg, source)))
+    if "rew_end_model.training.seq_length" not in overridden:
+        cfg.rew_end_model.training.seq_length = (
+            cfg.world_model_env.horizon + cfg.agent.denoiser.inner_model.num_steps_conditioning)
+    if "env.keymap" not in overridden and group_env == "atari":
+        cfg.env.keymap = f"atari/{cfg.env.train.id}"
+
+
+def save_config(cfg: Config, path: Path) -> None:
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(cfg.to_dict(), indent=1))
+
+
+def read_config(path: Path) -> Dict[str, Any]:
+    return json.loads(Path(path).read_text())

@@ -156,8 +156,13 @@ class Dataset:
         self.is_static = sd.get("is_static", False)
         self.start_idx = np.asarray(sd["start_idx"], dtype=np.int64)
         self.lengths = np.asarray(sd["lengths"], dtype=np.int64)
-        self._rew_hist = np.asarray(sd["rew_hist"], dtype=np.int64)
-        self._end_hist = np.asarray(sd["end_hist"], dtype=np.int64)
+        if "rew_hist" in sd:
+            self._rew_hist = np.asarray(sd["rew_hist"], dtype=np.int64)
+            self._end_hist = np.asarray(sd["end_hist"], dtype=np.int64)
+        else:  # the older state dicts carried Counters of the rewards and ends
+            cr, ce = sd["counter_rew"], sd["counter_end"]
+            self._rew_hist = np.array([cr.get(r, 0) for r in (-1, 0, 1)], dtype=np.int64)
+            self._end_hist = np.array([ce.get(e, 0) for e in (0, 1)], dtype=np.int64)
         self._cache.clear()
 
     def save_to_default_path(self) -> None:

@@ -27,6 +27,7 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils import to_device
 from .dataset import Dataset
 from .segment import DeviceBatch, SegmentId
 
@@ -185,14 +186,6 @@ class DeviceEpisodeStore:
             has_final[i] = self.ep_has_final[sid.episode_id]
         return np.concatenate([idx.ravel(), mask.ravel(), ep_idx, has_final])
 
-    def _upload(self, host: np.ndarray) -> torch.Tensor:
-        """The index array on the device: from pinned memory, without waiting, on the
-        card; a plain copy elsewhere."""
-        x = torch.from_numpy(host)
-        if self.device.type == "cuda":
-            return x.pin_memory().to(self.device, non_blocking=True)
-        return x.to(self.device)
-
     def make_batch(self, segment_ids: List[SegmentId],
                    masked_out: Optional[List[bool]] = None) -> DeviceBatch:
         """The ``DeviceBatch`` of the given windows (``[make_segment ...]`` then
@@ -202,7 +195,7 @@ class DeviceEpisodeStore:
         t = segment_ids[0].stop - segment_ids[0].start
         with self._lock:
             host = self._index_arrays(segment_ids, masked_out)
-            dev = self._upload(host)
+            dev = to_device(host, self.device)
             idx, mask, ep_idx, has_final = dev.split([b * t, b * t, b, b])
             idx = idx.view(b, t)
             m = mask.view(b, t).bool()

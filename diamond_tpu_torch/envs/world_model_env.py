@@ -20,13 +20,27 @@ a rollout step never waits on the host.
 The static int8 rollout (ops/quant.py) is structural: the sampler quantizes iff the
 denoiser holds a calibrated collection, and the rew/end step enters the int8 scope iff
 the rew/end model does. The IC burn-in (``make_ic_preparer``) never enters it.
+
+``PoolManager`` keeps the rollout supplied with initial conditions: it builds a pool
+from real segments of the dataset (gathered on the card from the device store, or
+collated on the host without one), burns in the rew/end LSTM over them and, with
+``policy_feats``, encodes their policy features; after each swap it builds the next
+pool on a background thread. The weights a build reads are a snapshot: before each
+build the live rew/end model's and actor-critic's state is copied, on the caller's
+thread and in stream order before the next optimizer step, into the manager's own
+copies of the two models, which only builds read. The build thread launches on the
+default stream, so its kernels serialize with the train step's on the card.
 """
 
 from __future__ import annotations
 
+import copy
+import threading
+import time
 from dataclasses import dataclass, replace
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import WorldModelEnvConfig
@@ -79,7 +93,7 @@ class RolloutDraws(NamedTuple):
     gumbel_end: torch.Tensor  # (T, B, 2)
 
 
-def _gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
+def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
     u = torch.rand(shape, generator=generator, device=device)
     return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
 
@@ -90,9 +104,9 @@ def draw_rollout_noise(num_steps: int, batch: int, frame_shape: Tuple[int, int, 
     t, b = num_steps, batch
     return RolloutDraws(
         x_init=torch.randn((t, b, *frame_shape), generator=generator, device=device),
-        gumbel_act=_gumbel((t, b, num_actions), generator, device),
-        gumbel_rew=_gumbel((t, b, 3), generator, device),
-        gumbel_end=_gumbel((t, b, 2), generator, device))
+        gumbel_act=gumbel((t, b, num_actions), generator, device),
+        gumbel_rew=gumbel((t, b, 3), generator, device),
+        gumbel_end=gumbel((t, b, 2), generator, device))
 
 
 @torch.no_grad()
@@ -270,3 +284,150 @@ class ImaginationEngine:
             ep_len=torch.zeros((batch_size,), dtype=torch.int32, device=dev),
         )
         return st, replace(pool, ptr=pool.ptr + batch_size)
+
+
+class PoolManager:
+    """Refills the IC pool from the episode dataset. ``sampler``: a BatchSampler with
+    ``seq_length`` = the conditioning frames (its batch size is the chunk a build draws
+    at once); ``store``: a DeviceEpisodeStore to gather from (else host segments).
+
+    Double-buffered: after handing out a pool it starts building the next one on a
+    daemon thread, so a swap only waits where the build has not finished
+    (``last_refill_wait_s``). A failed background build is raised by the next
+    ``ensure`` or ``wait_pending``, never swallowed. ``last_ids``: the segment ids of
+    the last build, chunk by chunk, so that a check can rebuild it (``build_pool(ids)``).
+    """
+
+    def __init__(self, engine: ImaginationEngine, dataset, sampler, pool_size: int,
+                 chunk: int = 512, background: bool = True, store=None,
+                 policy_feats: bool = False) -> None:
+        self.engine = engine
+        self.dataset = dataset
+        self.sampler = sampler
+        self.pool_size = pool_size
+        self.chunk = chunk
+        self.background = background
+        self.store = store
+        self.policy_feats = policy_feats
+        self.last_refill_wait_s = 0.0
+        self.builds = self.background_builds = self.swaps = 0
+        self.last_ids: List[list] = []
+        # the snapshot copies: no quant collection (the burn-in runs unquantized), no grad
+        self.rew_end = copy.deepcopy(engine.rew_end_model)
+        quant.strip(self.rew_end.net)
+        self.rew_end.net.requires_grad_(False)
+        self.ac = copy.deepcopy(engine.actor_critic) if policy_feats else None
+        if self.ac is not None:
+            self.ac.net.requires_grad_(False)
+        self._prepare = make_ic_preparer(self.rew_end, chunk)
+        self._pending: Optional[threading.Thread] = None
+        self._next_pool: Optional[ICPool] = None
+        self._pending_error: Optional[BaseException] = None
+
+    @torch.no_grad()
+    def snapshot(self) -> None:
+        """Copy the live weights into the manager's models (queued on the caller's
+        stream, so before any later in-place update of the live ones)."""
+        pairs = [(self.rew_end.net, self.engine.rew_end_model.net)]
+        if self.ac is not None:
+            pairs.append((self.ac.net, self.engine.actor_critic.net))
+        for own, live in pairs:
+            own_sd = own.state_dict()
+            for k, v in live.state_dict().items():
+                own_sd[k].copy_(v)
+
+    @torch.no_grad()
+    def build_pool(self, ids: Optional[List[list]] = None) -> ICPool:
+        """A pool from the snapshot models: ``pool_size`` segments drawn chunk by chunk
+        (or the given ``ids``), burned in, with their policy features if asked."""
+        obs_l, act_l, hx_l, cx_l, f_l, used = [], [], [], [], [], []
+        remaining = self.pool_size
+        while remaining > 0:
+            n = min(self.chunk, remaining)
+            chunk_ids = ids[len(used)] if ids is not None else self.sampler.sample()[:n]
+            used.append(chunk_ids)
+            if self.store is not None:
+                obs, act = self.store.gather_ic(chunk_ids)
+            else:
+                from ..data.segment import collate_segments_to_batch
+
+                b = collate_segments_to_batch([self.dataset[sid] for sid in chunk_ids])
+                dev = next(self.rew_end.net.parameters()).device
+                obs = torch.from_numpy(b.obs).to(dev)
+                act = torch.from_numpy(b.act.astype(np.int32)).to(dev)
+            hx, cx = self._prepare(obs, act)
+            obs_l.append(obs)
+            act_l.append(act)
+            hx_l.append(hx)
+            cx_l.append(cx)
+            if self.ac is not None:
+                f_l.append(encode_pool_feats(self.ac, obs))
+            remaining -= n
+        self.last_ids = used
+        self.builds += 1
+        return ICPool(obs=torch.cat(obs_l), act=torch.cat(act_l), hx=torch.cat(hx_l),
+                      cx=torch.cat(cx_l),
+                      ptr=torch.zeros((), dtype=torch.long, device=obs_l[0].device),
+                      feats=torch.cat(f_l) if f_l else None)
+
+    def _kick(self) -> None:
+        """Snapshot the live weights now and build the next pool on a thread."""
+        if not self.background:
+            return
+        self.snapshot()
+
+        def work() -> None:
+            try:
+                with torch.no_grad():  # grad mode is per thread
+                    self._next_pool = self.build_pool()
+                self.background_builds += 1
+            except BaseException as e:  # raised by the next ensure / wait_pending
+                self._pending_error = e
+
+        self._pending = threading.Thread(target=work, daemon=True, name="diamond-pool-builder")
+        self._pending.start()
+
+    def building(self) -> bool:
+        """True while a background build runs."""
+        return self._pending is not None and self._pending.is_alive()
+
+    def wait_pending(self) -> None:
+        """Block until a background build has finished; call before mutating the
+        dataset the sampler reads."""
+        if self._pending is not None:
+            self._pending.join()
+            if self._pending_error is not None:
+                e, self._pending_error = self._pending_error, None
+                self._pending, self._next_pool = None, None
+                raise RuntimeError("background IC-pool build failed") from e
+
+    def ensure(self, pool: Optional[ICPool], max_consumption: int
+               ) -> Tuple[ICPool, bool]:
+        """(pool, swapped): a pool with at least ``max_consumption`` unconsumed entries."""
+        if pool is None:
+            self.wait_pending()
+            self.snapshot()
+            pool = self.build_pool()
+            self._kick()
+            self.swaps += 1
+            return pool, True
+        if not self.needs_refill(pool, max_consumption):
+            return pool, False
+        t0 = time.perf_counter()
+        if self._pending is not None:
+            self.wait_pending()
+            pool = self._next_pool
+            self._pending, self._next_pool = None, None
+        else:
+            self.snapshot()
+            pool = self.build_pool()
+        self.last_refill_wait_s = time.perf_counter() - t0
+        self._kick()
+        self.swaps += 1
+        return pool, True
+
+    @staticmethod
+    def needs_refill(pool: ICPool, max_consumption: int) -> bool:
+        """The pool pointer is read back from the card: the one synchronisation an AC
+        step makes."""
+        return int(pool.ptr) + max_consumption > pool.size

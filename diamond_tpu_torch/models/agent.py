@@ -1,7 +1,10 @@
-"""Agent container: the three models, initialised from a ``torch.Generator``, and the
-optimizer (diamond_tpu/models/agent.py without checkpoint IO, which comes with the
-trainer). The models live on the card unless the caller asks for another device (the
-CPU tests pass ``device="cpu"``).
+"""Agent container: the three models, initialised from a ``torch.Generator``, their
+snapshot IO and the optimizer (diamond_tpu/models/agent.py). The models live on the
+card unless the caller asks for another device (the CPU tests pass ``device="cpu"``).
+``state_dict`` is the JAX package's variable tree of each model ({"denoiser":
+{"params": ..., "constants": ...}, ...}, numpy), without the int8 ``quant``
+collection, so ``save``/``load`` read and write the snapshots both packages share
+(checkpoint.py).
 
 ``configure_opt`` is the JAX package's optax chain: global-norm clipping, then AdamW
 with the minGPT decay split as a mask on the parameter names (the flax paths) and a
@@ -11,7 +14,8 @@ around it (and ``optax.scale(k)`` in front under ``grad_acc_sum``).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Union
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
@@ -46,6 +50,44 @@ class Agent:
         variable paths of the JAX package's model of that name)."""
         return {"denoiser": self.denoiser.inner_model, "rew_end_model": self.rew_end_model.net,
                 "actor_critic": self.actor_critic.net}
+
+    def state_dict(self) -> Dict[str, Any]:
+        from ..interop.jax_vars import QUANT, module_to_variables
+
+        out = {}
+        for name, net in self.nets.items():
+            v = module_to_variables(net)
+            v.pop(QUANT, None)
+            out[name] = v
+        return out
+
+    def load_state_dict(self, sd: Dict[str, Any], names: Optional[Sequence[str]] = None
+                        ) -> None:
+        """Load the trees of ``names`` (all three by default); a model's int8 collection
+        is dropped, since it was folded from the weights it had."""
+        from ..interop.jax_vars import QUANT, variables_to_state_dict
+        from ..ops import quant
+
+        for name in (names if names is not None else self.nets):
+            net = self.nets[name]
+            v = {k: x for k, x in sd[name].items() if k != QUANT}
+            net.load_state_dict(variables_to_state_dict(v), strict=True)
+            quant.strip(net)
+
+    def save(self, path: Path) -> None:
+        from ..checkpoint import save_agent_snapshot
+
+        save_agent_snapshot(self.state_dict(), path)
+
+    def load(self, path_to_ckpt: Path, load_denoiser: bool = True,
+             load_rew_end_model: bool = True, load_actor_critic: bool = True) -> None:
+        """Load a snapshot's models, those whose flag is set."""
+        from ..checkpoint import load_agent_snapshot
+
+        flags = {"denoiser": load_denoiser, "rew_end_model": load_rew_end_model,
+                 "actor_critic": load_actor_critic}
+        self.load_state_dict(load_agent_snapshot(Path(path_to_ckpt)),
+                             [n for n, f in flags.items() if f])
 
 
 # ---------------------------------------------------------------------------

@@ -254,5 +254,18 @@ def collection(root: nn.Module) -> Dict:
     return out
 
 
+def folded_from_current_weights(root: nn.Module) -> bool:
+    """True where every site's ``w_q``/``w_scale`` is the fold of its weight as it is now
+    (a site calibrated before its weight was updated rolls out on the old weight)."""
+    for _, m in _sites(root):
+        if m.w_q is None or m.act_scale is None:
+            continue
+        w = m.kernel if m.kernel.dim() == m.w_q.dim() else m.kernel[0, 0]
+        wq, ws = fold_quantize_weight(w, m.act_scale)
+        if not (torch.equal(wq, m.w_q) and torch.equal(ws, m.w_scale)):
+            return False
+    return True
+
+
 def has_collection(root: nn.Module) -> bool:
     return any(m.act_scale is not None for _, m in _sites(root))

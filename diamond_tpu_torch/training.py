@@ -84,6 +84,13 @@ class OptimizerSpec:
                    lr_warmup_steps=int(train_cfg.lr_warmup_steps),
                    grad_acc_steps=int(train_cfg.grad_acc_steps), grad_acc_sum=grad_acc_sum)
 
+    def lr_at(self, step: int) -> float:
+        """The logged learning rate of micro-step ``step`` (the JAX package's
+        ``OptimizerSpec.lr_at``)."""
+        if self.lr_warmup_steps > 0:
+            return self.lr * min(1.0, step / self.lr_warmup_steps)
+        return self.lr
+
     def build(self) -> AdamWClip:
         return configure_opt(self.lr, self.weight_decay, self.eps, self.max_grad_norm,
                              self.lr_warmup_steps, self.grad_acc_steps, self.grad_acc_sum)

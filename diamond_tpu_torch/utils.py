@@ -1,18 +1,194 @@
-"""The parts of diamond_tpu/utils.py the port's train steps and data path use: the
-confusion matrix of the rew/end loss (on the device), the per-class precision, recall
-and F1 computed from it (on the host), and the pickle I/O of the dataset's state.
+"""Utilities (diamond_tpu/utils.py): the JSONL metrics sink (wandb on top where its
+mode asks for it), the rotation of the weights-only agent snapshots, the confusion
+matrix of the rew/end loss (on the device) and the per-class precision, recall and F1
+computed from it (on the host), the final-evaluation protocol's numbers, the pickle I/O
+of the dataset's state, seeding, the finished-run guard and a timer.
 """
 
 from __future__ import annotations
 
+import json
 import pickle
+import random
+import time
+from functools import partial
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 Logs = List[Dict[str, Any]]
+
+
+# ---------------------------------------------------------------------------
+# Logging
+
+
+class MetricsLogger:
+    """Append-only JSONL metrics file; wandb (imported only where ``wandb_cfg["mode"]``
+    is not ``disabled``) gets the same rows. wandb's init is tried three times; after
+    that the run logs to the file only and says so."""
+
+    WANDB_INIT_RETRIES = 3
+
+    def __init__(self, path: Union[str, Path], wandb_cfg: Optional[Dict[str, Any]] = None
+                 ) -> None:
+        self.path = Path(path)
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self._wandb = None
+        if wandb_cfg and wandb_cfg.get("mode", "disabled") != "disabled":
+            for attempt in range(self.WANDB_INIT_RETRIES):
+                try:
+                    import wandb  # type: ignore
+
+                    wandb.init(**{k: v for k, v in wandb_cfg.items() if k != "mode"},
+                               resume=True)
+                    self._wandb = wandb
+                    break
+                except Exception as e:
+                    if attempt == self.WANDB_INIT_RETRIES - 1:
+                        print(f"wandb disabled after {self.WANDB_INIT_RETRIES} failed init "
+                              f"attempts ({e!r}); logging to JSONL only")
+                    else:
+                        time.sleep(5.0 * (attempt + 1))
+
+    def log(self, logs: Logs, epoch: int) -> None:
+        with self.path.open("a") as f:
+            for d in logs:
+                row = {"epoch": epoch, **{k: _to_py(v) for k, v in d.items()}}
+                f.write(json.dumps(row) + "\n")
+                if self._wandb is not None:
+                    self._wandb.log(row)
+
+
+def _to_py(v: Any) -> Any:
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    if isinstance(v, np.ndarray):
+        return v.tolist() if v.ndim > 0 else float(v)
+    if isinstance(v, np.integer):
+        return int(v)
+    if isinstance(v, np.floating):
+        return float(v)
+    return v
+
+
+def final_protocol_metrics(to_log: Logs, episodes: int) -> Dict[str, Any]:
+    """The final evaluation's numbers: the mean and std of the returns of the first
+    ``episodes`` episodes in completion order (batched test envs may finish more in the
+    last step), and the mean over all collected as a secondary metric. With no episode
+    the means are NaN (numpy's mean of nothing)."""
+    returns = [d["return"] for d in to_log if "return" in d]
+    protocol = returns[:episodes]
+    return {"final_return_mean": float(np.mean(protocol)),
+            "final_return_std": float(np.std(protocol)),
+            "final_num_episodes": len(protocol),
+            "final_return_mean_all_collected": float(np.mean(returns)),
+            "final_num_episodes_all_collected": len(returns)}
+
+
+# ---------------------------------------------------------------------------
+# Agent snapshots
+
+
+def get_path_agent_ckpt(path_ckpt_dir: Union[str, Path], epoch: int, num_zeros: int = 5
+                        ) -> Path:
+    """The snapshot of ``epoch``; a negative epoch counts from the newest kept one."""
+    d = Path(path_ckpt_dir) / "agent_versions"
+    if epoch >= 0:
+        return d / f"agent_epoch_{epoch:0{num_zeros}d}.npz"
+    all_ = sorted(p for p in d.iterdir() if p.suffix == ".npz")
+    assert len(all_) >= -epoch
+    return all_[epoch]
+
+
+def keep_agent_copies_every(agent_sd: Dict[str, Any], epoch: int, path_ckpt_dir: Path,
+                            every: int, num_to_keep: Optional[int]) -> None:
+    """Write this epoch's snapshot; keep one every ``every`` epochs, at most
+    ``num_to_keep`` of them, and the latest."""
+    assert every > 0
+    assert num_to_keep is None or num_to_keep > 0
+    from .checkpoint import save_agent_snapshot
+
+    get_path = partial(get_path_agent_ckpt, path_ckpt_dir)
+    get_path(0).parent.mkdir(parents=True, exist_ok=True)
+    save_agent_snapshot(agent_sd, get_path(epoch))
+    if (num_to_keep is not None) and (epoch % every == 0):
+        get_path(max(0, epoch - num_to_keep * every)).unlink(missing_ok=True)
+    if (epoch - 1) % every != 0:
+        get_path(max(0, epoch - 1)).unlink(missing_ok=True)
+
+
+def save_info_for_import_script(epoch: int, run_name: Optional[str], path_ckpt_dir: Path
+                                ) -> None:
+    with (Path(path_ckpt_dir) / "info_for_import_script.json").open("w") as f:
+        json.dump({"epoch": epoch, "name": run_name}, f)
+
+
+def count_parameters(module: torch.nn.Module) -> int:
+    return sum(p.numel() for p in module.parameters())
+
+
+# ---------------------------------------------------------------------------
+# Runs
+
+
+def set_seed(seed: int) -> None:
+    """numpy's and Python's global generators (the port's own draws take generators)."""
+    np.random.seed(seed)
+    random.seed(seed)
+
+
+def skip_if_run_is_over(func: Callable) -> Callable:
+    """Run ``func`` unless the run dir (the working directory) holds ``.run_is_over``;
+    mark it so after a run that returned."""
+
+    def inner(*args, **kwargs):
+        path_run_is_over = Path(".run_is_over")
+        if not path_run_is_over.is_file():
+            func(*args, **kwargs)
+            path_run_is_over.touch()
+        else:
+            print(f"Run is marked as finished. To unmark, remove '{path_run_is_over}'.")
+
+    return inner
+
+
+def try_until_no_except(func: Callable) -> None:
+    while True:
+        try:
+            func()
+        except KeyboardInterrupt:
+            break
+        except Exception:
+            continue
+        else:
+            break
+
+
+class Timer:
+    def __enter__(self) -> "Timer":
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.elapsed = time.perf_counter() - self.start
+
+
+# ---------------------------------------------------------------------------
+# Host to device
+
+
+def to_device(x: Any, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``: on the card from pinned memory, without waiting for
+    the copy; a plain copy elsewhere. A tensor is moved as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 # ---------------------------------------------------------------------------

@@ -783,3 +783,90 @@ def test_rew_end_step_shapes_match_plain_versions(dtype):
             dx = conv3x3_dgrad(dy, k, s, (h, h))
             _bwd_close(dx, conv3x3_dgrad_plain(dy, k, s, (h, h)), tol)
             same_bits((dx,), (conv3x3_dgrad(dy, k, s, (h, h)),))
+
+
+# the tiny trainer of tests/test_trainer_e2e.py (TINY_OVERRIDES, without importing that
+# file: it imports jax)
+TRAINER_TINY = [
+    "env=fake", "env.train.size=16", "env.train.max_episode_steps=30", "common.seed=7",
+    "agent.denoiser.inner_model.cond_channels=16", "agent.denoiser.inner_model.depths=[1,1]",
+    "agent.denoiser.inner_model.channels=[8,8]", "agent.denoiser.inner_model.attn_depths=[0,0]",
+    "agent.rew_end_model.lstm_dim=32", "agent.rew_end_model.cond_channels=8",
+    "agent.rew_end_model.depths=[1,1]", "agent.rew_end_model.channels=[8,8]",
+    "agent.rew_end_model.attn_depths=[0,0]", "agent.actor_critic.lstm_dim=32",
+    "agent.actor_critic.channels=[8,8]", "agent.actor_critic.down=[1,1]",
+    "collection.train.first_epoch.min=60", "collection.train.first_epoch.max=60",
+    "collection.train.first_epoch.threshold_rew=1", "collection.train.num_steps_total=90",
+    "collection.train.steps_per_epoch=30", "collection.test.num_episodes=1",
+    "collection.test.num_final_episodes=2", "training.num_final_epochs=1",
+    "denoiser.training.steps_first_epoch=3", "denoiser.training.steps_per_epoch=2",
+    "denoiser.training.batch_size=4", "denoiser.training.lr_warmup_steps=2",
+    "rew_end_model.training.steps_first_epoch=3", "rew_end_model.training.steps_per_epoch=2",
+    "rew_end_model.training.batch_size=4", "actor_critic.training.steps_first_epoch=2",
+    "actor_critic.training.steps_per_epoch=2", "actor_critic.training.batch_size=4",
+    "actor_critic.actor_critic_loss.backup_every=5", "world_model_env.horizon=5",
+    "world_model_env.num_batches_to_preload=8",
+    "world_model_env.diffusion_sampler.num_steps_denoising=2", "evaluation.every=1"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["imagination", "model_free", "static"])
+def test_trainer_runs_on_the_card_and_resumes(tmp_path, mode):
+    """The tiny trainer on the card (bf16, int8 rollout, device store): two epochs and
+    the final collection, then a resume that equals the saved state and runs one epoch
+    more; model-free and static-dataset runs too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import json
+
+    import numpy as np
+
+    from diamond_tpu_torch import ops
+    from diamond_tpu_torch.config import load_config
+    from diamond_tpu_torch.data.dataset import Dataset
+    from diamond_tpu_torch.data.episode import Episode
+    from diamond_tpu_torch.trainer import Trainer
+
+    extra = {"imagination": [],
+             "model_free": ["training.model_free=True", "training.num_final_epochs=2"],
+             "static": [f"static_dataset.path={tmp_path / 'static'}",
+                        "training.num_final_epochs=2"]}[mode]
+    if mode == "static":
+        rng = np.random.default_rng(0)
+        for split in ("train", "test"):
+            ds = Dataset(tmp_path / "static" / split, f"{split}_dataset")
+            for _ in range(3):
+                end = np.zeros(24, np.uint8)
+                end[-1] = 1
+                ds.add_episode(Episode(
+                    obs=rng.integers(0, 255, (24, 16, 16, 3), dtype=np.uint8),
+                    act=rng.integers(0, 3, 24).astype(np.int32),
+                    rew=rng.choice([-1.0, 0.0, 1.0], 24).astype(np.float32), end=end,
+                    trunc=np.zeros(24, np.uint8),
+                    info={"final_observation": rng.integers(0, 255, (16, 16, 3),
+                                                            dtype=np.uint8)}))
+            ds.save_to_default_path()
+    run_dir = tmp_path / "run"
+    run_dir.mkdir()
+    for name in ("conv3x3", "conv3x3_wgrad"):
+        getattr(ops, name).launches = 0
+    trainer = Trainer(load_config(TRAINER_TINY + extra), run_dir, run_dir=run_dir)
+    trainer.run()
+    assert trainer.epoch == 2
+    assert ops.conv3x3.launches > 0 and ops.conv3x3_wgrad.launches > 0
+    rows = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    assert all(np.isfinite(v) for r in rows for k, v in r.items()
+               if k.endswith(("loss_total", "loss_denoising")))
+    if mode != "static":
+        assert any("final_return_mean" in r for r in rows)
+    saved = torch.load(run_dir / "checkpoints" / "state.pt", weights_only=False)
+    resumed = Trainer(load_config(TRAINER_TINY + extra + ["common.resume=True"]), run_dir,
+                      run_dir=run_dir)
+    state = resumed.state_dict()
+    for name, ts in saved["train_states"].items():
+        for k, v in ts["net"].items():
+            assert torch.equal(v, state["train_states"][name]["net"][k]), (name, k)
+    assert (resumed.epoch, resumed.num_batch_train) == (saved["epoch"], saved["num_batch_train"])
+    resumed._cfg.training.num_final_epochs += 1
+    resumed.run()
+    assert resumed.epoch == 3

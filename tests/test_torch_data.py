@@ -392,3 +392,22 @@ def test_confusion_matrix_and_classification_metrics_match_jax():
     utils.process_confusion_matrices_if_any_and_compute_classification_metrics(logs)
     jutils.process_confusion_matrices_if_any_and_compute_classification_metrics(jlogs)
     assert logs == jlogs and len(logs) == 3 and "confusion_matrix" not in logs[0]
+
+
+def test_legacy_state_dict_loads_in_both_packages(tmp_path):
+    """The older state dicts carried Counters (counter_rew/counter_end) and no is_static
+    flag (tests/test_data.py's case): both packages load them with the same counts."""
+    from collections import Counter
+
+    sd = {"start_idx": np.array([0, 10]), "lengths": np.array([10, 7]),
+          "counter_rew": Counter({-1: 3, 0: 12, 1: 2}), "counter_end": Counter({0: 15, 1: 2})}
+    ds, jds = Dataset(tmp_path / "p", "p"), JDataset(tmp_path / "j", "j")
+    ds.load_state_dict(dict(sd))
+    jds.load_state_dict(dict(sd))
+    for d in (ds, jds):
+        assert d.num_episodes == 2 and d.num_steps == 17
+        assert d.counts_rew == [3, 12, 2] and d.counts_end == [15, 2]
+        assert not d.is_static
+    assert ds.state_dict().keys() == jds.state_dict().keys()
+    for k, v in ds.state_dict().items():
+        np.testing.assert_array_equal(v, jds.state_dict()[k], err_msg=k)

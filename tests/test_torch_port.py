@@ -178,13 +178,44 @@ def test_port_imports_no_jax_and_no_yaml():
                "diamond_tpu_torch.data.device_store", "diamond_tpu_torch.data.traverser",
                "diamond_tpu_torch.utils", "diamond_tpu_torch.training",
                "diamond_tpu_torch.envs.world_model_env",
-               "diamond_tpu_torch.interop.jax_vars"]
-    code = ("import importlib, sys\n"
+               "diamond_tpu_torch.interop.jax_vars",
+               "diamond_tpu_torch.envs.env", "diamond_tpu_torch.envs.fake_env",
+               "diamond_tpu_torch.envs.fake_ale", "diamond_tpu_torch.envs.atari_preprocessing",
+               "diamond_tpu_torch.coroutines", "diamond_tpu_torch.coroutines.env_loop",
+               "diamond_tpu_torch.coroutines.collector", "diamond_tpu_torch.data.prefetch",
+               "diamond_tpu_torch.checkpoint", "diamond_tpu_torch.trainer",
+               "diamond_tpu_torch.main"]
+    # torch itself may import tqdm where it is installed: the forbidden modules it loaded
+    # are dropped and their import blocked before the port's modules are imported
+    code = ("import importlib, importlib.abc, sys\n"
+            "import numpy, torch\n"
+            "FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'diamond_tpu', "
+            "'gymnasium', 'cv2', 'tqdm', 'wandb')\n"
+            "for m in [m for m in sys.modules if m.split('.')[0] in FORBIDDEN]:\n"
+            "    del sys.modules[m]\n"
+            "class Block(importlib.abc.MetaPathFinder):\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in FORBIDDEN:\n"
+            "            raise ImportError(f'the port imported {name}')\n"
+            "sys.meta_path.insert(0, Block())\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'yaml', 'diamond_tpu'))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN)\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO)
+
+
+def test_cli_refuses_to_run_without_a_gpu(tmp_path):
+    """No CUDA here: ``python -m diamond_tpu_torch.main`` exits non-zero with its message
+    before any later stage (no traceback, no run dir)."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-m", "diamond_tpu_torch.main", "env=fake",
+                          "--run-dir", str(tmp_path / "run")], cwd=tmp_path,
+                         capture_output=True, text=True, env=env)
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr and "Traceback" not in res.stderr
+    assert not (tmp_path / "run").exists()
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
