@@ -3,7 +3,8 @@
 agent on one NVIDIA GPU, bf16 and static int8 (the production default), the
 actor-critic train step in imagination on the int8 world model, the denoiser train
 step, the rew/end train step fed from the device episode store, the model-free
-actor-critic step, and three epochs of the whole trainer, through the port's
+actor-critic step, three epochs of the whole trainer, and the two-stage (csgo) world
+model (play at batch 1, its train steps, its wm_only trainer), through the port's
 hand-written CUDA kernels.
 
     python3 chip_smoke.py              # from the repo root, on a machine with a CUDA GPU
@@ -81,6 +82,18 @@ result line):
      outputs); a resumed Trainer equal to the last saved state bit for bit; the
      host-device syncs of one step of each component (none for the denoiser and rew/end
      steps, the pool pointer's read for the AC step);
+  6g. the two-stage (csgo) world model at agent/csgo.yaml's widths (the dynamics U-Net
+     at 16x16, the upsampler's at 64x64, 4 actions, bf16, 3 Euler steps both stages):
+     play through ``WorldModelEnv`` with the upsampler at num_envs = 1 on
+     bench_two_stage.py's synthetic IC provider, bf16 and int8 (the three nets calibrated
+     as bench_two_stage.py does) in turns, 3 warm-up steps then 60 steps x 3 of each, every
+     chunk counted -> ``two_stage_play_fps_batch1`` per path, syncs per step over one
+     horizon, one step profiled; a few f32 play steps on the card against the CPU (same
+     weights, ICs and draws: rewards and ends equal, frames within one grid level); the
+     upsampler step (B 16 x T 2 at 64x64) and the two-stage denoiser step (B 32, frames
+     downsampled in the step) with launches held to the module tree and no sync; the
+     wm_only trainer on a static dataset of fake-env episodes (two epochs with
+     evaluation, its snapshot in a fresh Agent, resume bit for bit, no sync in its steps);
   7. each kernel against its plain PyTorch version at every shape and dtype its paths
      sent it (the backward kernels: those of the four train steps), and in f32
      (TF32 off), with device times, bounds and library yardsticks (the weight gradient
@@ -129,37 +142,45 @@ OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 KERNELS = {
     "adagn_silu": ("diamond_tpu_torch/kernels/csrc/fused_norms.cu",
                    "diamond_tpu/ops/fused_norms.py:97",
-                   ("bf16", "denoiser_step", "rew_end_step", "trainer")),
+                   ("bf16", "denoiser_step", "rew_end_step", "trainer", "ts_play_bf16",
+                    "ts_up_step", "ts_den_step", "ts_trainer")),
     "groupnorm_silu": ("diamond_tpu_torch/kernels/csrc/fused_norms.cu",
                        "diamond_tpu/ops/fused_norms.py:65",
-                       ("bf16", "denoiser_step", "rew_end_step", "mf_ac_step", "trainer")),
+                       ("bf16", "denoiser_step", "rew_end_step", "mf_ac_step", "trainer",
+                        "ts_play_bf16", "ts_up_step", "ts_den_step", "ts_trainer")),
     "conv3x3": ("diamond_tpu_torch/kernels/csrc/conv3x3.cu", "diamond_tpu/ops/conv3x3.py:33",
-                ("bf16", "denoiser_step", "rew_end_step", "mf_ac_step", "trainer")),
+                ("bf16", "denoiser_step", "rew_end_step", "mf_ac_step", "trainer",
+                 "ts_play_bf16", "ts_play_int8", "ts_up_step", "ts_den_step", "ts_trainer")),
     "adagn_silu_q8": ("diamond_tpu_torch/kernels/csrc/fused_q8.cu",
-                      "diamond_tpu/ops/fused_q8.py:55", ("int8", "trainer")),
+                      "diamond_tpu/ops/fused_q8.py:55", ("int8", "trainer", "ts_play_int8")),
     "groupnorm_silu_q8": ("diamond_tpu_torch/kernels/csrc/fused_q8.cu",
-                          "diamond_tpu/ops/fused_q8.py:55", ("int8", "trainer")),
+                          "diamond_tpu/ops/fused_q8.py:55", ("int8", "trainer", "ts_play_int8")),
     "conv3x3_int8": ("diamond_tpu_torch/kernels/csrc/conv3x3_q8.cu",
-                     "diamond_tpu/ops/quant.py:161", ("int8", "trainer")),
+                     "diamond_tpu/ops/quant.py:161", ("int8", "trainer", "ts_play_int8")),
     # the backward of K2's custom_vjp (the XLA VJP of _gn_silu_ref on the TPU)
     "groupnorm_silu_bwd": ("diamond_tpu_torch/kernels/csrc/gn_bwd.cu",
                            "diamond_tpu/ops/fused_norms.py:155",
-                           ("ac_step", "denoiser_step", "rew_end_step", "mf_ac_step", "trainer")),
+                           ("ac_step", "denoiser_step", "rew_end_step", "mf_ac_step", "trainer",
+                            "ts_up_step", "ts_den_step", "ts_trainer")),
     # K3's gradients (XLA's VJP of the 3x3 conv on the TPU): the data gradient at stride 1
     # (K3 on dy) and at stride 2 (a kernel of its own), the weight and bias gradients
     "conv3x3_dgrad": ("diamond_tpu_torch/kernels/csrc/conv3x3.cu",
                       "diamond_tpu/ops/conv3x3.py:33",
-                      ("ac_step", "denoiser_step", "rew_end_step", "mf_ac_step", "trainer")),
+                      ("ac_step", "denoiser_step", "rew_end_step", "mf_ac_step", "trainer",
+                       "ts_up_step", "ts_den_step", "ts_trainer")),
     "conv3x3_dgrad_s2": ("diamond_tpu_torch/kernels/csrc/conv3x3_dgrad_s2.cu",
                          "diamond_tpu/ops/conv3x3.py:33",
-                         ("denoiser_step", "rew_end_step", "trainer")),
+                         ("denoiser_step", "rew_end_step", "trainer", "ts_up_step", "ts_den_step",
+                          "ts_trainer")),
     "conv3x3_wgrad": ("diamond_tpu_torch/kernels/csrc/conv3x3_wgrad.cu",
                       "diamond_tpu/ops/conv3x3.py:33",
-                      ("ac_step", "denoiser_step", "rew_end_step", "mf_ac_step", "trainer")),
+                      ("ac_step", "denoiser_step", "rew_end_step", "mf_ac_step", "trainer",
+                       "ts_up_step", "ts_den_step", "ts_trainer")),
     # the backward of K1's custom_vjp (the XLA VJP of _adagn_silu_ref on the TPU)
     "adagn_silu_bwd": ("diamond_tpu_torch/kernels/csrc/gn_bwd.cu",
                        "diamond_tpu/ops/fused_norms.py:187",
-                       ("denoiser_step", "rew_end_step", "trainer")),
+                       ("denoiser_step", "rew_end_step", "trainer", "ts_up_step", "ts_den_step",
+                        "ts_trainer")),
 }
 BACKWARD = ("groupnorm_silu_bwd", "conv3x3_dgrad", "conv3x3_wgrad")
 # the backward kernels, whose sums run in a fixed order: two calls give the same bits
@@ -181,8 +202,11 @@ AC_LAUNCH_CALLS_BEFORE = 35869
 # order (TF32 off on both sides); bf16 outputs are rounded once on both sides and may
 # differ by one bf16 ulp (1/128 relative), so 2 ulps are allowed. The int8 conv is exact
 # (int8 sums, then the same IEEE f32 steps). The quantizing norms are held in codes:
-# at most 1 apart (a multiply-add the kernel fuses moves a value across a rounding
-# boundary), in at most CODE_SHARE of the elements. K2's backward: f32 dx 1e-4, dscale
+# at most 1 apart, and only where the value lies at a rounding boundary (every element
+# that differs within one unit of its code boundary: ops.static_code_flips and
+# per_sample_code_flips), in at most CODE_SHARE of the elements, or in one element where
+# a tensor has fewer than 1 / CODE_SHARE (the two-stage model's 2x2x128 at B = 1 has
+# 512); such small tensors are held on FLIP_SEEDS inputs more. K2's backward: f32 dx 1e-4, dscale
 # and dbias 1e-3 (sums over up to 131k terms in another order), bf16 all 1/64; K1's the
 # same, its FiLM gradient summed per sample over up to 4,096 pixels.
 TOL = {"float32": {"adagn_silu": 1e-4, "groupnorm_silu": 1e-4, "conv3x3": 1e-3,
@@ -194,9 +218,13 @@ TOL = {"float32": {"adagn_silu": 1e-4, "groupnorm_silu": 1e-4, "conv3x3": 1e-3,
                     "adagn_silu_bwd": (1 / 64,) * 2, "conv3x3_dgrad": 1 / 64,
                     "conv3x3_dgrad_s2": 1 / 64, "conv3x3_wgrad": 1 / 64}}
 CODE_SHARE = 1e-3
+FLIP_SEEDS = 16
 PER_RUN = {"bf16": "rollout", "int8": "rollout", "ac_step": "AC step",
            "denoiser_step": "denoiser step", "rew_end_step": "rew/end step",
-           "mf_ac_step": "model-free AC step", "trainer": "trainer epoch"}
+           "mf_ac_step": "model-free AC step", "trainer": "trainer epoch",
+           "ts_play_bf16": "two-stage play step", "ts_play_int8": "two-stage play step",
+           "ts_up_step": "upsampler step", "ts_den_step": "two-stage denoiser step",
+           "ts_trainer": "two-stage trainer epoch"}
 # The H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and dense
 # operations/s by type; the norms' element-wise work runs on the CUDA cores in f32.
 HBM_BYTES_S = 3.35e12
@@ -467,12 +495,25 @@ def make_inputs(name, sig, dtype, gen):
     return (x, scale, bias, g, am)
 
 
-def code_err(q, ref) -> float:
-    """Largest code difference; fails on more than one, or in more than CODE_SHARE."""
-    d = (q.int() - ref.int()).abs()
-    check(int(d.max()) <= 1 and (d > 0).float().mean().item() <= CODE_SHARE,
-          f"codes differ by {int(d.max())} in {(d > 0).float().mean().item():.2e} of elements")
-    return float(d.max())
+def code_err(flips: tuple, numel: int, what: str) -> float:
+    """Largest code difference, from ``ops.code_flips``' (largest, count, margin); fails
+    on more than one, on an element that differs farther than one unit from its code
+    boundary, or in more than CODE_SHARE of the elements (and more than one element).
+    Keeps the count and the margin in code_err.flips and code_err.margin."""
+    most, n, margin = flips
+    check(most <= 1 and margin <= 1 and n <= max(1, CODE_SHARE * numel),
+          f"{what}: codes differ by up to {most} in {n} of {numel} elements, the farthest "
+          f"{margin:.3g} units from its code boundary")
+    code_err.flips, code_err.margin = n, margin
+    return float(most)
+
+
+def static_flips(name, y, ref, args) -> tuple:
+    """``ops.static_code_flips`` of a static-epilogue K4 call."""
+    from diamond_tpu_torch import ops
+
+    plain = ops.adagn_silu_plain if name == "adagn_silu_q8" else ops.groupnorm_silu_plain
+    return ops.static_code_flips(y, ref, plain, *args[:-1], act_max=args[-1])
 
 
 def plain_args(name, args):
@@ -581,7 +622,7 @@ def compare_one(name, kernel, plain, args, dt_name):
         base = ops.adagn_silu if name == "adagn_silu_q8" else ops.groupnorm_silu
         check(torch.equal(y, ops.quantize_static(base(*args[:-1]), args[-1])),
               f"{name}: codes differ from quantize({base.__name__} kernel)")
-        return code_err(y, ref)
+        return code_err(static_flips(name, y, ref, args), y.numel(), f"{name} {dt_name}")
     check(bool(torch.isfinite(y.float()).all()), f"{name} {dt_name}: non-finite")
     scale = max(1.0, ref.float().abs().max().item())
     e = (y.float() - ref.float()).abs().max().item()
@@ -642,6 +683,22 @@ def compare_kernels(shapes, launches, runs):
                     row["moments_err"] = compare_one.moments_err
                 if compare_one.tol_share is not None:
                     row["tol_share"] = compare_one.tol_share
+                if name in ("adagn_silu_q8", "groupnorm_silu_q8"):
+                    row.update(code_flips=code_err.flips, code_margin=code_err.margin)
+                    if args[0].numel() < 1 / CODE_SHARE:  # one flip allowed: more inputs
+                        seen = [(code_err.flips, code_err.margin)]
+                        for _ in range(FLIP_SEEDS):
+                            compare_one(name, kernel, plain,
+                                        make_inputs(name, sig, getattr(torch, dt_name), gen),
+                                        dt_name)
+                            seen.append((code_err.flips, code_err.margin))
+                        row["seed_flips"] = [f for f, _ in seen]
+                        row["seed_margin"] = max(m for _, m in seen)
+                        log(f"[kernel] {name} {sig} {dt_name}: codes differ in "
+                            f"{sum(f > 0 for f, _ in seen)} of {len(seen)} inputs of "
+                            f"{args[0].numel()} elements ({sum(f for f, _ in seen)} "
+                            f"element(s) in all), the farthest {row['seed_margin']:.3g} "
+                            f"units from its code boundary")
                 if as_run:  # the path's dtype: weight by its call count
                     t_b, t_o = bound(name, plain_args(name, args))
                     row.update(bytes_ms=t_b, ops_ms=t_o, bound_ms=max(t_b, t_o))
@@ -670,7 +727,11 @@ def compare_kernels(shapes, launches, runs):
                     torch.cuda.synchronize()
                     rel = ((qt.scale - ref.scale).abs() / ref.scale).max().item()
                     check(rel <= 1e-5, f"norm_affine_silu_q8 {sig}: scale rel err {rel}")
-                    row["per_sample_code_err"] = code_err(qt.q, ref.q)
+                    row["per_sample_code_err"] = code_err(
+                        ops.per_sample_code_flips(qt, ref, *pargs), qt.q.numel(),
+                        f"norm_affine_silu_q8 {sig} {dt_name}")
+                    row["per_sample_code_flips"] = code_err.flips
+                    row["per_sample_code_margin"] = code_err.margin
                     row["per_sample_ms"] = cuda_time_ms(lambda: ops.norm_affine_silu_q8(*pargs))
                     row["per_sample_plain_ms"] = cuda_time_ms(
                         lambda: ops.norm_affine_silu_q8_plain(*pargs))
@@ -704,6 +765,9 @@ def compare_kernels(shapes, launches, runs):
                            library_ms=t["library_ms"] if t["has_library"] else None,
                            shapes=len(shapes[p][name]))
                    for p, t in tots.items()}
+        for p in by_path:  # the two-stage paths' new shapes, each with its launches
+            if p.startswith("ts_"):
+                by_path[p]["shape_launches"] = {str(sig): c for sig, c in shapes[p][name].items()}
         path, tot = paths[0], tots[paths[0]]
         entry = dict(name=name, route="cuda", source=source, replaces=replaces,
                      launches=launches[path][name], max_abs_err=err["bfloat16"],
@@ -1301,44 +1365,42 @@ def host_costs() -> dict:
     return out
 
 
-def denoiser_step_phase(agent, smi):
-    """The denoiser train step as the trainer calls it (training.make_denoiser_train_step
-    with trainer.yaml's denoiser section: lr 1e-4, decay 1e-2, eps 1e-8, clip 1.0, the
-    sigma distribution; warmup 0 instead of 100, so that the first step moves the
-    weights), on a deep copy of the agent's denoiser (full width, bf16 compute over f32
-    parameters; the copy carries the int8 collection, which training ignores): B = 32
-    synthetic segments of 6 frames, two autoregressive windows. Counts set to 0, one
-    warm-up step and DEN_STEPS timed ones, counts read and held to the module tree's;
-    then one step profiled, one under the sync debug mode, and one loss's gradients
-    checked leaf by leaf. The agent's denoiser is checked untouched. Returns (signatures,
-    result)."""
+def train_step_phase(label, model, section, make, batch, windows, samples, what, loss_fn,
+                     smi, note=""):
+    """A diffusion model's train step as the trainer calls it (``make(model, tx, sigma)``
+    with trainer.yaml's ``section``: its optimizer and sigma distribution; warmup 0
+    instead of 100, so that the first step moves the weights), on a deep copy of
+    ``model`` (a Denoiser at full width, bf16 compute over f32 parameters; the copy
+    carries any int8 collection, which training ignores), on ``batch``: counts set to 0,
+    one warm-up step and DEN_STEPS timed ones, counts read and held to the module tree's
+    (``windows`` passes forward and backward a step); then one step profiled (no bias
+    sum, interleave or cast under the backwards), one under the sync debug mode (none
+    allowed), and one loss's (``loss_fn(copy, generator)``) gradients checked leaf by
+    leaf. ``model`` is checked untouched. The rate is ``samples`` per step, in ``what``;
+    ``note`` says how the batch reaches the model. Returns (signatures, result)."""
     import copy
     from dataclasses import replace
 
     import torch
-    from diamond_tpu_torch.config import TrainerConfig
-    from diamond_tpu_torch.data.episode import obs_to_float
-    from diamond_tpu_torch.training import OptimizerSpec, TrainState, make_denoiser_train_step
+    from diamond_tpu_torch.training import OptimizerSpec, TrainState
 
-    tcfg = TrainerConfig().denoiser
-    spec = replace(OptimizerSpec.from_cfg(tcfg.optimizer, tcfg.training), lr_warmup_steps=0)
+    spec = replace(OptimizerSpec.from_cfg(section.optimizer, section.training),
+                   lr_warmup_steps=0)
     tx = spec.build()
-    src = agent.denoiser.inner_model
+    src = model.inner_model
     src_before = {k: v.detach().clone() for k, v in src.state_dict().items()}
-    den = copy.deepcopy(agent.denoiser)
+    den = copy.deepcopy(model)
     net = den.inner_model
     before = {n: p.detach().clone() for n, p in net.named_parameters()}
     state = TrainState.create(net, tx)
-    step = make_denoiser_train_step(den, tx, tcfg.sigma_distribution)
-    batch = denoiser_batch(agent.cfg, BATCH, torch.Generator().manual_seed(SEED + 7), "cuda")
-    windows = batch.obs.shape[1] - agent.cfg.denoiser.inner_model.num_steps_conditioning
+    step = make(den, tx, section.sigma_distribution)
     dgen = torch.Generator(device="cuda").manual_seed(SEED + 8)
 
     count_reset()
     state, m = step(state, batch, generator=dgen)
     torch.cuda.synchronize()
-    check(all(bool(torch.isfinite(v)) for v in m.values()), f"denoiser step: non-finite {m}")
-    check_all_moved_and_finite(net, before, "denoiser step (first step, warmup 0)")
+    check(all(bool(torch.isfinite(v)) for v in m.values()), f"{label}: non-finite {m}")
+    check_all_moved_and_finite(net, before, f"{label} (first step, warmup 0)")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(DEN_STEPS):
@@ -1348,47 +1410,70 @@ def denoiser_step_phase(agent, smi):
     peak = torch.cuda.max_memory_allocated()
     steps = 1 + DEN_STEPS
     launches, shapes, per_step = per_step_launches(steps)
-    check_launches(per_step, expected_launches(net, windows), "denoiser step")
+    check_launches(per_step, expected_launches(net, windows), label)
     metrics = {k: v.item() for k, v in m.items()}
-    check(all(map(math.isfinite, metrics.values())), f"denoiser step: non-finite {metrics}")
-    fps = BATCH * windows / secs
-    log(f"[denoiser_step] B={BATCH} T={batch.obs.shape[1]} ({windows} windows), bf16 compute, "
-        f"f32 parameters, warmup 0 (the first step moves every weight): {secs * 1e3:.1f} ms "
-        f"per step, {fps:.1f} denoiser training samples/s (B x windows / step) over "
-        f"{DEN_STEPS} steps after one warm-up, peak memory {peak / 2**30:.2f} GiB, on {smi}")
-    log("[denoiser_step] metrics of the last step: "
+    check(all(map(math.isfinite, metrics.values())), f"{label}: non-finite {metrics}")
+    b, t = batch.obs.shape[:2]
+    log(f"[{label}] B={b} T={t} at {batch.obs.shape[2]}x{batch.obs.shape[3]}{note}, bf16 "
+        f"compute, f32 parameters, warmup 0 (the first step moves every weight): "
+        f"{secs * 1e3:.1f} ms per step, {samples / secs:.1f} {what}/s "
+        f"over {DEN_STEPS} steps after one warm-up, peak memory {peak / 2**30:.2f} GiB, on {smi}")
+    log(f"[{label}] metrics of the last step: "
         + ", ".join(f"{k} {v:.4g}" for k, v in metrics.items()))
-    log(f"[launches] denoiser_step, per step (as the module tree says): "
+    log(f"[launches] {label}, per step (as the module tree says): "
         + ", ".join(f"{k} {v:g}" for k, v in per_step.items() if v))
 
-    profile = profile_run(lambda: step(state, batch, generator=dgen), "denoiser_step",
-                          "denoiser step")
-    log_unprofiled_idle(profile, secs * 1e3, "denoiser step")
-    check_conv_backward(profile, per_step["conv3x3_dgrad"], "denoiser step")
-    check_norm_backward(profile, "denoiser step")
-    norm_removed = norm_bwd_removed_launches(launches, shapes, steps)
-    most = DENOISER_LAUNCH_CALLS_BEFORE - removed_launch_calls(net, windows) - norm_removed
+    profile = profile_run(lambda: step(state, batch, generator=dgen), label, "train step")
+    log_unprofiled_idle(profile, secs * 1e3, label)
+    check_conv_backward(profile, per_step["conv3x3_dgrad"], label)
+    check_norm_backward(profile, label)
+    syncs = sync_points(lambda: step(state, batch, generator=dgen))
+    log(f"[sync] {label}: {sum(syncs.values())} host-device synchronisations {syncs}")
+    check(not syncs, f"{label} synchronised: {syncs}")
+    check_finite_gradients(net, lambda: loss_fn(den, dgen), label)
+    moved = check_all_moved_and_finite(net, before, label)
+    untouched = all(torch.equal(v, src_before[k]) for k, v in src.state_dict().items())
+    check(untouched and all(p.grad is None for p in src.parameters()),
+          f"{label}: the agent's model changed or has gradients")
+    log(f"[{label}] every one of {len(before)} parameter tensors got a finite gradient; "
+        f"largest weight change {moved:.3g}; the agent's model untouched")
+    return shapes, dict(step_ms=secs * 1e3, rate=samples / secs, rate_unit=f"{what}/s",
+                        windows=windows, peak_memory_bytes=peak, launches=launches,
+                        launches_per_step=per_step, metrics=metrics, profile=profile,
+                        sync_points=syncs, max_weight_change=moved, steps=steps)
+
+
+def denoiser_step_phase(agent, smi):
+    """``train_step_phase`` of the denoiser step (training.make_denoiser_train_step with
+    trainer.yaml's denoiser section) on B = 32 synthetic segments of 6 frames, two
+    autoregressive windows; besides, the launch calls per step held under those of the
+    step before the conv and norm backwards lost their extra launches, and the host's
+    costs per backward piece. Returns (signatures, result)."""
+    import torch
+    from diamond_tpu_torch.config import TrainerConfig
+    from diamond_tpu_torch.data.episode import obs_to_float
+    from diamond_tpu_torch.training import make_denoiser_train_step
+
+    tcfg = TrainerConfig().denoiser
+    batch = denoiser_batch(agent.cfg, BATCH, torch.Generator().manual_seed(SEED + 7), "cuda")
+    windows = batch.obs.shape[1] - agent.cfg.denoiser.inner_model.num_steps_conditioning
+    shapes, result = train_step_phase(
+        "denoiser_step", agent.denoiser, tcfg, make_denoiser_train_step, batch, windows,
+        BATCH * windows, "denoiser training samples (B x windows / step)",
+        lambda den, g: den.loss(obs_to_float(batch.obs), batch.act, batch.mask_padding,
+                                tcfg.sigma_distribution, generator=g)[0], smi,
+        f" ({windows} windows)")
+    profile, steps = result["profile"], result["steps"]
+    norm_removed = norm_bwd_removed_launches(result["launches"], shapes, steps)
+    most = (DENOISER_LAUNCH_CALLS_BEFORE - removed_launch_calls(agent.denoiser.inner_model,
+                                                                windows) - norm_removed)
     check(profile["launches"] <= most, f"denoiser step: {profile['launches']} kernel launch "
           f"calls, more than {most:g}: {DENOISER_LAUNCH_CALLS_BEFORE} less the launches removed")
     log(f"[profile]   {profile['launches']} kernel launch calls per denoiser step: at most "
         f"{most:g} ({DENOISER_LAUNCH_CALLS_BEFORE} less the bias sums, interleaves and "
         f"stride-2 flips, and {norm_removed:g} K2 sums and casts)")
-    syncs = sync_points(lambda: step(state, batch, generator=dgen))
-    log(f"[sync] denoiser step: {sum(syncs.values())} host-device synchronisations {syncs}")
-    check_finite_gradients(net, lambda: den.loss(
-        obs_to_float(batch.obs), batch.act, batch.mask_padding, tcfg.sigma_distribution,
-        generator=dgen)[0], "denoiser step")
-    moved = check_all_moved_and_finite(net, before, "denoiser step")
-    untouched = all(torch.equal(v, src_before[k]) for k, v in src.state_dict().items())
-    check(untouched and all(p.grad is None for p in src.parameters()),
-          "denoiser step: the agent's denoiser changed or has gradients")
-    log(f"[denoiser_step] every one of {len(before)} parameter tensors got a finite gradient; "
-        f"largest weight change {moved:.3g}; the agent's denoiser untouched")
-    costs = host_costs()
-    return shapes, dict(step_ms=secs * 1e3, samples_per_s=fps, windows=windows,
-                        peak_memory_bytes=peak, launches=launches, launches_per_step=per_step,
-                        metrics=metrics, profile=profile, sync_points=syncs,
-                        max_weight_change=moved, steps=steps, host_costs_us=costs)
+    result["host_costs_us"] = host_costs()
+    return shapes, result
 
 
 def denoiser_step_reference(agent):
@@ -2102,6 +2187,497 @@ def trainer_phase(smi):
     return shapes, result
 
 
+# ---------------------------------------------------------------------------
+# The two-stage (csgo) world model
+
+# the play paths' counted steps: TS_WARMUP, then TS_STEPS x TS_REPS in turns with the other
+# path (bench_two_stage.py's 3 warm-up steps and 60 timed steps, best of 3)
+TS_WARMUP, TS_STEPS, TS_REPS = 3, 60, 3
+TS_REF_STEPS = 3
+# a whole play step card vs CPU: the share of the frame's values allowed more than 2
+# levels apart (a low-res pixel one level apart moves the upsampler's conditioning, and
+# its sampling loop can carry that a few levels)
+STEP_FAR_SHARE = 0.01
+TS_NUM_ACTIONS = 4  # bench_two_stage.py NUM_ACTIONS
+TS_PLAY = ("ts_play_bf16", "ts_play_int8")
+TS_TRAINER_OVERRIDES = [
+    # agent=csgo at its published widths on env=fake's 64x64 frames, the wm_only mode on a
+    # static dataset the phase writes; trainer.yaml's batch sizes (denoiser 32, upsampler
+    # 16 x 2 frames); cut to two epochs of 10 and 5 steps with evaluation
+    "agent=csgo", "env=fake", f"common.seed={SEED}", "training.wm_only=True",
+    "training.num_final_epochs=2", "evaluation.every=1",
+    "denoiser.training.steps_first_epoch=10", "denoiser.training.steps_per_epoch=5",
+    "upsampler.training.steps_first_epoch=10", "upsampler.training.steps_per_epoch=5",
+]
+TS_EPISODES = {"train": 8, "test": 2}  # fake-env episodes of up to 100 steps
+
+
+def ts_provider(size: int, n_cond: int, lstm_dim: int, seed: int):
+    """bench_two_stage.py's synthetic IC provider at full resolution: random uint8 frames
+    and actions, small random rew/end LSTM states, from a seeded numpy generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def provider(n: int):
+        obs = rng.integers(0, 255, (n, n_cond, size, size, 3), dtype=np.uint8)
+        act = rng.integers(0, TS_NUM_ACTIONS, (n, n_cond)).astype(np.int32)
+        hx = rng.normal(size=(n, lstm_dim)).astype(np.float32) * 0.1
+        cx = rng.normal(size=(n, lstm_dim)).astype(np.float32) * 0.1
+        return obs, act, hx, cx
+
+    return provider
+
+
+def ts_nets(agent) -> list:
+    """The three nets the int8 play path calibrates (bench_two_stage.py:111-134)."""
+    return [agent.denoiser.inner_model, agent.rew_end_model.net, agent.upsampler.inner_model]
+
+
+def ts_calibrate(env, agent, provider, sites) -> list:
+    """bench_two_stage.py's calibration: eight ICs area-downsampled for the dynamics
+    denoiser and the rew/end model, their last frames upsampled for the upsampler."""
+    import torch
+    from diamond_tpu_torch.data.episode import obs_to_float
+    from diamond_tpu_torch.envs.wm_env_stateful import to_low_res
+    from diamond_tpu_torch.models.denoiser import upsample_frame
+    from diamond_tpu_torch.ops import quant
+
+    obs_u8, act, _, _ = provider(8)
+    f = env.cascade.factor
+    obs_f = obs_to_float(to_low_res(torch.from_numpy(obs_u8).cuda(), f))
+    act = torch.from_numpy(act).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    env.engine.sampler.calibrate(obs_f, act, sites, generator=gen)
+    agent.rew_end_model.calibrate(obs_f[:, -2:-1], act[:, -2:-1], obs_f[:, -1:], sites)
+    env.cascade.up_sampler.calibrate(upsample_frame(obs_f[:, -1], f)[:, None], None, sites,
+                                     generator=gen)
+    return [quant.collection(n) for n in ts_nets(agent)]
+
+
+def ts_counted(label, fn, totals) -> None:
+    """``fn()`` with every launch count set to 0 just before and read just after, added
+    to ``totals[label]`` (launches, signatures)."""
+    import torch
+    from diamond_tpu_torch import ops
+
+    count_reset()
+    fn()
+    torch.cuda.synchronize()
+    launches, shapes = totals.setdefault(label, ({}, {}))
+    for name in KERNELS:
+        w, sigs = getattr(ops, name), shapes.setdefault(name, {})
+        launches[name] = launches.get(name, 0) + w.launches
+        for sig, c in w.shapes.items():
+            sigs[sig] = sigs.get(sig, 0) + c
+
+
+def ts_play_phase(smi):
+    """The two-stage play path (the csgo agent at its full widths: the dynamics U-Net at
+    16x16, the upsampler's at 64x64, 4 actions, bf16, 3 Euler steps for both stages):
+    ``WorldModelEnv`` with the upsampler at num_envs = 1 on bench_two_stage.py's synthetic
+    IC provider. bf16, then int8 calibrated as bench_two_stage.py does, in turns: 3
+    warm-up steps each, then 60 steps x 3 repetitions of each path alternately; every
+    chunk counted (launch counts set to 0 just before it, read just after). Per path
+    ``two_stage_play_fps_batch1`` (best and median of the repetitions), syncs per step
+    over one horizon, one step profiled. Returns (signatures, launches, result, agent,
+    env, cfg)."""
+    import numpy as np
+    import torch
+    from diamond_tpu_torch.config import load_config
+    from diamond_tpu_torch.envs.wm_env_stateful import WorldModelEnv
+    from diamond_tpu_torch.envs.world_model_env import ImaginationEngine
+    from diamond_tpu_torch.models import Agent
+
+    cfg = load_config(["agent=csgo", "env=fake"])
+    acfg = cfg.agent
+    acfg.num_actions = TS_NUM_ACTIONS
+    acfg.__post_init__()
+    gen = torch.Generator().manual_seed(SEED + 20)
+    agent = Agent(acfg, getattr(torch, cfg.tpu.compute_dtype), device="cuda", generator=gen)
+    for net in agent.nets.values():
+        perturb_zero_leaves(net, gen)
+    engine = ImaginationEngine(agent.denoiser, agent.rew_end_model, agent.actor_critic,
+                               cfg.world_model_env)
+    size = cfg.env.train.size
+    provider = ts_provider(size, acfg.denoiser.inner_model.num_steps_conditioning,
+                           acfg.rew_end_model.lstm_dim, SEED + 21)
+    env = WorldModelEnv(engine, provider, 1, seed=SEED, upsampler=agent.upsampler)
+    f = env.cascade.factor
+    log(f"[two_stage] agent=csgo: dynamics denoiser {acfg.denoiser.inner_model.channels} at "
+        f"{size // f}x{size // f} ({acfg.denoiser.inner_model.num_steps_conditioning} frames), "
+        f"upsampler {acfg.upsampler.inner_model.channels} at {size}x{size} (factor {f}), "
+        f"rew/end {acfg.rew_end_model.channels} LSTM {acfg.rew_end_model.lstm_dim} and AC at "
+        f"{acfg.rew_end_model.img_size}x{acfg.rew_end_model.img_size}, "
+        f"{cfg.world_model_env.diffusion_sampler.num_steps_denoising} Euler steps both stages, "
+        f"{cfg.tpu.compute_dtype}, {TS_NUM_ACTIONS} actions")
+    nets = ts_nets(agent)
+    env.reset(seed=SEED)
+    colls = ts_calibrate(env, agent, provider, cfg.tpu.int8_sites)
+    log(f"[two_stage] calibrated {cfg.tpu.int8_sites!r}: "
+        + ", ".join(f"{n} {num_sites(c)} sites" for n, c in
+                    zip(("denoiser", "rew/end", "upsampler"), colls)))
+    totals, times = {}, {label: [] for label in TS_PLAY}
+    obs_seen = []
+    act_of = lambda i: [i % TS_NUM_ACTIONS]  # noqa: E731
+
+    def steps(n):
+        def run():
+            for i in range(n):
+                obs_seen.append(env.step(act_of(i))[0])
+        return run
+
+    for label in TS_PLAY:  # warm-up, counted
+        set_int8(nets, colls, label.endswith("int8"))
+        ts_counted(label, steps(TS_WARMUP), totals)
+    for _ in range(TS_REPS):
+        for label in TS_PLAY:
+            set_int8(nets, colls, label.endswith("int8"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts_counted(label, steps(TS_STEPS), totals)
+            times[label].append(time.perf_counter() - t0)
+    check(all(o.dtype == np.uint8 and o.shape == (1, size, size, 3) for o in obs_seen),
+          "two-stage play: frames not uint8 (1, 64, 64, 3)")
+    runs = TS_WARMUP + TS_STEPS * TS_REPS
+    result, launches, shapes = {}, {}, {}
+    for label in TS_PLAY:
+        launches[label], shapes[label] = totals[label]
+        fps = sorted(TS_STEPS / s for s in times[label])
+        result[label] = dict(fps_best=fps[-1], fps_median=fps[len(fps) // 2], fps_runs=fps,
+                             launches=launches[label], steps=runs)
+        log(f"[two_stage] {label}: two_stage_play_fps_batch1 = {fps[-1]:.1f} frames/s (best of "
+            f"{TS_REPS} x {TS_STEPS} steps in turns with the other path; median "
+            f"{fps[len(fps) // 2]:.1f}, runs {[round(v, 1) for v in fps]}) on {smi}")
+        log(f"[launches] {label}, over {runs} steps: {launches[label]}")
+    for name, (_, _, paths) in KERNELS.items():
+        for label in TS_PLAY:
+            if label in paths:
+                check(launches[label][name] > 0, f"{name} was not launched on {label}")
+    check(all(launches["ts_play_bf16"][n] == 0 for n in ("adagn_silu_q8", "groupnorm_silu_q8",
+                                                         "conv3x3_int8")),
+          "an int8 kernel ran on the two-stage bf16 play path")
+    for label in TS_PLAY:
+        set_int8(nets, colls, label.endswith("int8"))
+        horizon = cfg.world_model_env.horizon
+        syncs = sync_points(steps(horizon))
+        per_step = sum(syncs.values()) / horizon
+        result[label]["sync_points"], result[label]["syncs_per_step"] = syncs, per_step
+        log(f"[sync] {label}: {per_step:.3f} host-device synchronisations per step over one "
+            f"horizon ({horizon} steps, a refill at its end) {syncs}")
+        prof = profile_run(steps(1), label, "play step")
+        ms = 1e3 / result[label]["fps_median"]
+        log_unprofiled_idle(prof, ms, f"{label} step")
+        result[label]["profile"] = prof
+        result[label]["idle_share_unprofiled"] = 1 - prof["busy_ms"] / ms
+    set_int8(nets, colls, False)
+    return shapes, launches, result, agent, cfg
+
+
+def ts_play_reference(agent, cfg):
+    """TS_REF_STEPS play steps in f32 on the card (kernels, TF32 off) against the CPU
+    (plain versions), the same weights, ICs and injected draws, each stage of a step
+    from the same inputs: the card's env starts each step from the CPU env's state, its
+    transition (``_wm_transition``) gives equal rewards, ends and truncations and the
+    low-res frame within one uint8 grid level, and its upsampler super-resolves the CPU's
+    low-res frame to within one level of the CPU's. (A pixel that one ulp moves across
+    the floor onto the grid is one level apart; carried into the next steps' conditioning
+    and through the upsampler's gain it grows, so each stage is held to its own inputs.)
+    Then one whole ``WorldModelEnv.step`` on both from the same state: rewards, ends and
+    truncations equal, at most STEP_FAR_SHARE of the frame's values more than 2 levels
+    apart (their largest difference reported); and the card's step hands its own stages
+    on: its low-res frame is its transition's and the frame it shows is its upsampler's
+    output on that frame with the step's upsampler latent, bit for bit."""
+    import numpy as np
+    import torch
+    from diamond_tpu_torch.data.episode import obs_to_uint8
+    from diamond_tpu_torch.envs.wm_env_stateful import StepDraws, WorldModelEnv
+    from diamond_tpu_torch.envs.world_model_env import ImaginationEngine, ImagState, gumbel
+    from diamond_tpu_torch.models import Agent
+
+    acfg = agent.cfg
+    n_cond = acfg.denoiser.inner_model.num_steps_conditioning
+    ics = ts_provider(cfg.env.train.size, n_cond, acfg.rew_end_model.lstm_dim, SEED + 22)(4)
+    g = torch.Generator().manual_seed(SEED + 23)
+    low, high = acfg.rew_end_model.img_size, cfg.env.train.size
+    draws = [StepDraws(torch.randn((1, low, low, 3), generator=g), gumbel((1, 3), g, "cpu"),
+                       gumbel((1, 2), g, "cpu"), torch.randn((1, high, high, 3), generator=g))
+             for _ in range(TS_REF_STEPS + 1)]
+    envs = []  # (device, env): the card's, then the CPU's
+    for dev in ("cuda", "cpu"):
+        a = Agent(acfg, torch.float32, device=dev)
+        for name, net in a.nets.items():
+            net.load_state_dict(agent.nets[name].state_dict())
+        eng = ImaginationEngine(a.denoiser, a.rew_end_model, a.actor_critic, cfg.world_model_env)
+        env = WorldModelEnv(eng, lambda n: tuple(x[:n] for x in ics), 1, upsampler=a.upsampler)
+        env.reset()
+        envs.append((dev, env))
+    card, cpu = envs[0][1], envs[1][1]
+    to_card = lambda st: ImagState(**{k: getattr(st, k).cuda()  # noqa: E731
+                                      for k in st.__dataclass_fields__})
+    lv = lambda a, b: int((torch.round((a.cpu().clamp(-1, 1) + 1) * 127.5)  # noqa: E731
+                           - torch.round((b.clamp(-1, 1) + 1) * 127.5)).abs().max())
+    low_levels = high_levels = 0
+    for i, dr in enumerate(draws[:TS_REF_STEPS]):
+        card._st = to_card(cpu._st)
+        act = torch.tensor([i % TS_NUM_ACTIONS], dtype=torch.int32)
+        (_, c_low, *c_flags), (cpu_st, next_low, *p_flags) = (
+            env.engine._wm_transition(env._st, act.to(dev), dr.x_init.to(dev),
+                                      dr.gumbel_rew.to(dev), dr.gumbel_end.to(dev))
+            for dev, env in envs)
+        for c, p, what in zip(c_flags, p_flags, ("rewards", "ends", "truncations")):
+            check(torch.equal(c.cpu(), p),
+                  f"two-stage play reference step {i}: {what} differ card vs CPU")
+        low_levels = max(low_levels, lv(c_low, next_low))
+        up_card = card.cascade.upsample(next_low.cuda(), x_init=dr.x_init_high.cuda())
+        up_cpu = cpu.cascade.upsample(next_low, x_init=dr.x_init_high)
+        high_levels = max(high_levels, lv(up_card, up_cpu))
+        cpu._st = cpu_st
+    check(low_levels <= 1 and high_levels <= 1, f"two-stage play reference: low-res frames "
+          f"{low_levels} and full-resolution frames {high_levels} grid levels apart card vs CPU")
+    st0, dr = to_card(cpu._st), draws[-1]
+    dr_card = StepDraws(*(x.cuda() for x in dr))
+    _, low_own, *_ = card.engine._wm_transition(
+        st0, torch.tensor([1], dtype=torch.int32, device="cuda"), dr_card.x_init,
+        dr_card.gumbel_rew, dr_card.gumbel_end)
+    high_own = obs_to_uint8(card.cascade.upsample(low_own, x_init=dr_card.x_init_high))
+    card._st = st0
+    whole = [env.step([1], StepDraws(*(x.to(dev) for x in dr))) for dev, env in envs]
+    for k, what in ((1, "rewards"), (2, "ends"), (3, "truncations")):
+        check(np.array_equal(whole[0][k], whole[1][k]),
+              f"two-stage play reference, a whole step: {what} differ card vs CPU")
+    obs, info = whole[0][0], whole[0][4]
+    shown = info.get("final_observation", obs)  # the frame shown before a refill
+    check(np.array_equal(info["low_res_obs"], obs_to_uint8(low_own).cpu().numpy())
+          and np.array_equal(shown, high_own.cpu().numpy()),
+          "two-stage play reference: the card's step does not show its upsampler's output "
+          "on its own low-res frame")
+    d = np.abs(whole[0][0].astype(int) - whole[1][0].astype(int))
+    step_levels, far = int(d.max()), float((d > 2).mean())
+    check(far <= STEP_FAR_SHARE, f"two-stage play reference, a whole step: {far:.3%} of the "
+          f"frame's values more than 2 levels apart card vs CPU (at most {STEP_FAR_SHARE:.0%})")
+    log(f"[reference] two-stage play, {TS_REF_STEPS} steps at B=1 f32 card vs CPU plain, each "
+        f"stage from the same inputs: rewards/ends/truncations equal, low-res frames within "
+        f"{low_levels} and the upsampler's frames within {high_levels} grid level(s); one whole "
+        f"WorldModelEnv.step from the same state: rewards/ends equal, frames up to "
+        f"{step_levels} level(s) apart, {far:.3%} of values more than 2; the card's step shows "
+        f"its upsampler's output on its own low-res frame, bit for bit")
+    return dict(low_res_max_levels=low_levels, frame_max_levels=high_levels,
+                whole_step_frame_levels=step_levels, whole_step_far_share=far)
+
+
+def ts_batch(b: int, t: int, size: int, gen):
+    """Synthetic uint8 segments (b, t, size, size, 3) and random actions, every frame
+    real, as a DeviceBatch on the card."""
+    import torch
+    from diamond_tpu_torch.data.segment import DeviceBatch
+
+    obs = torch.randint(0, 256, (b, t, size, size, 3), generator=gen, dtype=torch.uint8).cuda()
+    act = torch.randint(0, TS_NUM_ACTIONS, (b, t), generator=gen, dtype=torch.int32).cuda()
+    z = dict(device="cuda", dtype=torch.int32)
+    return DeviceBatch(obs=obs, act=act, rew=torch.zeros((b, t), device="cuda"),
+                       end=torch.zeros((b, t), **z), trunc=torch.zeros((b, t), **z),
+                       mask_padding=torch.ones((b, t), dtype=torch.bool, device="cuda"),
+                       final_obs=torch.zeros((b, size, size, 3), dtype=torch.uint8,
+                                             device="cuda"),
+                       has_final_obs=torch.zeros((b,), dtype=torch.bool, device="cuda"))
+
+
+def ts_step_phase(agent, cfg, which, smi):
+    """``train_step_phase`` of a two-stage train step: ``up`` the upsampler step at
+    trainer.yaml's ``upsampler`` section (B 16 x T 2 = 32 frames at 64x64, time folded
+    into batch); ``den`` the two-stage denoiser step (B 32 segments of 6 full-resolution
+    frames, downsampled by 4 in the step, two windows at 16x16). Returns (signatures,
+    result)."""
+    import torch
+    from diamond_tpu_torch.data.episode import obs_to_float
+    from diamond_tpu_torch.training import (_two_stage_obs, make_denoiser_train_step,
+                                            make_upsampler_train_step)
+
+    size, f = cfg.env.train.size, agent.cfg.downsample_factor
+    gen = torch.Generator().manual_seed(SEED + 24)
+    if which == "up":
+        sec = cfg.upsampler
+        b, t = sec.training.batch_size, sec.training.seq_length
+        batch = ts_batch(b, t, size, gen)
+        return train_step_phase(
+            "ts_up_step", agent.upsampler, sec, make_upsampler_train_step, batch, 1, b * t,
+            "upsampler frames",
+            lambda up, g: up.loss_upsampler(obs_to_float(batch.obs), batch.mask_padding,
+                                            sec.sigma_distribution, generator=g)[0],
+            smi, " (time folded into batch)")
+    sec = cfg.denoiser
+    n = agent.cfg.denoiser.inner_model.num_steps_conditioning
+    b, t = sec.training.batch_size, n + 1 + sec.training.num_autoregressive_steps
+    batch = ts_batch(b, t, size, gen)
+    make = lambda den, tx, sigma: make_denoiser_train_step(  # noqa: E731
+        den, tx, sigma, downsample_factor=f)
+    return train_step_phase(
+        "ts_den_step", agent.denoiser, sec, make, batch, t - n, b * (t - n),
+        "two-stage denoiser samples",
+        lambda den, g: den.loss(_two_stage_obs(batch.obs, f), batch.act, batch.mask_padding,
+                                sec.sigma_distribution, generator=g)[0],
+        smi, f" (downsampled by {f} in the step: {t - n} windows at {size // f}x{size // f})")
+
+
+def ts_static_dataset(root: Path, size: int) -> dict:
+    """A static dataset of fake-env episodes at size x size (the env's own frames,
+    random actions, up to 100 steps, deaths with their final frames), written where
+    ``static_dataset.path`` reads it. Returns the steps per split."""
+    import numpy as np
+    from diamond_tpu_torch.data.dataset import Dataset
+    from diamond_tpu_torch.data.episode import Episode
+    from diamond_tpu_torch.envs.fake_env import FakeEnv
+
+    rng = np.random.default_rng(SEED + 26)
+    steps = {}
+    for split, n in TS_EPISODES.items():
+        ds = Dataset(root / split, f"{split}_dataset")
+        env = FakeEnv(1, size=size)
+        obs, _ = env.reset(seed=SEED + len(split))
+        for _ in range(n):
+            rec = {k: [] for k in ("obs", "act", "rew", "end", "trunc")}
+            while True:
+                a = rng.integers(0, FakeEnv.num_actions, 1)
+                nxt, rew, end, trunc, info = env.step(a)
+                for k, v in (("obs", obs[0]), ("act", a[0]), ("rew", rew[0]), ("end", end[0]),
+                             ("trunc", trunc[0])):
+                    rec[k].append(v)
+                obs = nxt
+                if end[0] or trunc[0]:
+                    break
+            ds.add_episode(Episode(
+                obs=np.stack(rec["obs"]), act=np.asarray(rec["act"], np.int32),
+                rew=np.asarray(rec["rew"], np.float32), end=np.asarray(rec["end"], np.uint8),
+                trunc=np.asarray(rec["trunc"], np.uint8),
+                info={"final_observation": info["final_observation"][0]}))
+        ds.save_to_default_path()
+        steps[split] = ds.num_steps
+    return steps
+
+
+def ts_trainer_phase(smi):
+    """The two-stage trainer (``Trainer`` with agent=csgo, training.wm_only=True, what
+    ``python -m diamond_tpu_torch.main agent=csgo training.wm_only=True
+    static_dataset.path=...`` runs) on a static dataset of fake-env episodes at 64x64,
+    cut to two epochs with evaluation (TS_TRAINER_OVERRIDES): counts set to 0 around the
+    run, each part's seconds, the denoiser's and upsampler's steps synchronising nowhere,
+    the agent snapshot loaded into a fresh Agent (equal outputs of all four models) and a
+    resumed Trainer equal to the saved state bit for bit. Returns (signatures, result)."""
+    import copy
+    import tempfile
+
+    import torch
+    from diamond_tpu_torch import ops
+    from diamond_tpu_torch.config import load_config
+    from diamond_tpu_torch.models import Agent
+    from diamond_tpu_torch.trainer import Trainer
+    from diamond_tpu_torch.utils import get_path_agent_ckpt
+
+    tmp = tempfile.TemporaryDirectory(prefix="diamond_two_stage_")
+    root = Path(tmp.name)
+    overrides = TS_TRAINER_OVERRIDES + [f"static_dataset.path={root / 'static'}"]
+    cfg = load_config(overrides)
+    t0 = time.perf_counter()
+    ds_steps = ts_static_dataset(root / "static", cfg.env.train.size)
+    log(f"[ts_trainer] static dataset of fake-env episodes at {cfg.env.train.size}x"
+        f"{cfg.env.train.size}: {ds_steps} steps, written in {time.perf_counter() - t0:.1f} s; "
+        f"config {TS_TRAINER_OVERRIDES}")
+    run_dir = root / "run"
+    run_dir.mkdir()
+    count_reset()
+    trainer = Trainer(cfg, Path(__file__).resolve().parent, run_dir=run_dir, device="cuda")
+    saved = {}
+    save = trainer.save_checkpoint
+
+    def save_and_keep():
+        save()
+        saved["state"] = copy.deepcopy(trainer.state_dict())
+    trainer.save_checkpoint = save_and_keep
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {name: getattr(ops, name).launches for name in KERNELS}
+    shapes = {name: dict(getattr(ops, name).shapes) for name in KERNELS}
+    check(trainer.epoch == 2, f"the two-stage trainer ran {trainer.epoch} epochs, not 2")
+    for t in trainer.timings:
+        log(f"[ts_trainer] epoch {t['epoch']}: " + "; ".join(
+            f"{name} {t[name + '_s']:.2f} s ({t[name + '_steps']} steps, "
+            f"{t[name + '_s'] / t[name + '_steps'] * 1e3:.1f} ms/step)"
+            for name in ("denoiser", "upsampler") if name + "_s" in t)
+            + f"; eval {t.get('eval_s', 0.0):.2f} s, checkpoint {t['checkpoint_s']:.2f} s")
+    keys = {k for line in (run_dir / "metrics.jsonl").read_text().splitlines()
+            for k in json.loads(line)}
+    for k in ("denoiser/train/loss_denoising", "upsampler/train/loss_denoising",
+              "denoiser/test/loss_denoising", "upsampler/test/loss_denoising"):
+        check(k in keys, f"the two-stage trainer logged no {k}")
+    check(not any(k.startswith(("rew_end_model/", "actor_critic/")) for k in keys),
+          "the wm_only trainer trained or evaluated the rew/end model or the actor-critic")
+    log(f"[ts_trainer] {trainer.epoch} epochs in {run_s:.1f} s on {smi}")
+    log(f"[launches] ts_trainer, over the run: {launches}")
+    for name, (_, _, paths) in KERNELS.items():
+        if "ts_trainer" in paths:
+            check(launches[name] > 0, f"{name} was not launched by the two-stage trainer")
+
+    # the agent snapshot loads into a fresh agent with equal outputs
+    path = get_path_agent_ckpt(run_dir / "checkpoints", -1)
+    fresh_agent = Agent(trainer.agent.cfg, trainer._compute_dtype, device="cuda")
+    fresh_agent.load(path)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    acfg, size, f = trainer.agent.cfg, cfg.env.train.size, trainer.agent.cfg.downsample_factor
+    n = acfg.denoiser.inner_model.num_steps_conditioning
+    low = torch.rand((2, n, size // f, size // f, 3), generator=g, device="cuda") * 2 - 1
+    high = torch.rand((2, size, size, 3), generator=g, device="cuda") * 2 - 1
+    act = torch.randint(0, acfg.num_actions, (2, n), generator=g, device="cuda")
+    outs = []
+    for a in (trainer.agent, fresh_agent):
+        lr, le, _ = a.rew_end_model.predict_rew_end(low[:, :-1], act[:, :-1], low[:, 1:])
+        den = a.denoiser.denoise(low[:, -1], 1.0, low.movedim(1, 3).reshape(
+            2, size // f, size // f, 3 * n), act)
+        up = a.upsampler.denoise(high, 1.0, high, None)
+        outs.append([lr, le, den, up])
+    check(all(torch.equal(x, y) for x, y in zip(*outs)),
+          "the two-stage snapshot's outputs differ from the trainer's agent's")
+    log(f"[ts_trainer] the agent snapshot {path.name} loads into a fresh Agent: rew/end, "
+        f"denoiser and upsampler outputs equal bit for bit")
+    cfg2 = load_config(overrides + ["common.resume=True"])
+    trainer2 = Trainer(cfg2, Path(__file__).resolve().parent, run_dir=run_dir, device="cuda")
+    n_t = states_equal(saved["state"], trainer2.state_dict(), "two-stage resume")
+    log(f"[ts_trainer] resume: a second Trainer with common.resume=True equals the last saved "
+        f"state bit for bit ({n_t} tensors, the upsampler's weights, moments and steps "
+        f"among them)")
+    del trainer2
+    syncs = {name: sync_points(fn) for name, fn in (
+        ("denoiser", trainer.denoiser_train_step), ("upsampler", trainer.upsampler_train_step))}
+    log(f"[sync] two-stage trainer steps: {syncs}")
+    check(not syncs["denoiser"] and not syncs["upsampler"],
+          "a two-stage denoiser or upsampler step synchronised")
+    result = dict(run_s=run_s, timings=trainer.timings, launches=launches, epochs=trainer.epoch,
+                  dataset_steps=ds_steps, sync_points=syncs, resume_tensors=n_t)
+    del trainer, fresh_agent
+    tmp.cleanup()
+    return shapes, result
+
+
+def two_stage_phase(smi):
+    """The [two_stage] phase: play (both paths), the card-vs-CPU play reference, the
+    upsampler and two-stage denoiser steps, the wm_only trainer. Returns (signatures per
+    path, launches per path, runs per path, result)."""
+    shapes, launches, result, agent, cfg = ts_play_phase(smi)
+    result["reference_play"] = ts_play_reference(agent, cfg)
+    for which in ("up", "den"):
+        label = "ts_up_step" if which == "up" else "ts_den_step"
+        shapes[label], result[label] = ts_step_phase(agent, cfg, which, smi)
+        launches[label] = result[label]["launches"]
+    shapes["ts_trainer"], result["ts_trainer"] = ts_trainer_phase(smi)
+    launches["ts_trainer"] = result["ts_trainer"]["launches"]
+    runs = {p: result[p]["steps"] for p in ("ts_play_bf16", "ts_play_int8", "ts_up_step",
+                                             "ts_den_step")}
+    runs["ts_trainer"] = result["ts_trainer"]["epochs"]
+    return shapes, launches, runs, result
+
+
 def num_sites(coll: dict) -> int:
     return sum(num_sites(v) if isinstance(v, dict) else k == "act_scale" for k, v in coll.items())
 
@@ -2223,6 +2799,8 @@ def main() -> int:
     shapes["mf_ac_step"], results["mf_ac_step"] = mf_ac_step_phase(agent, smi)
     # the trainer, three epochs of the whole loop on models of its own
     shapes["trainer"], results["trainer"] = trainer_phase(smi)
+    # the two-stage (csgo) world model: play, its train steps and the wm_only trainer
+    ts_shapes, ts_launches, ts_runs, results["two_stage"] = two_stage_phase(smi)
 
     paths = ("bf16", "int8", "ac_step", "denoiser_step", "rew_end_step", "mf_ac_step",
              "trainer")
@@ -2230,6 +2808,9 @@ def main() -> int:
     runs = {p: 1 + TIMED_ROLLOUTS if p in ("bf16", "int8")
             else results[p]["epochs"] if p == "trainer" else results[p]["steps"]
             for p in paths}
+    shapes.update(ts_shapes)
+    launches.update(ts_launches)
+    runs.update(ts_runs)
     rows, details = compare_kernels(shapes, launches, runs)
     for r in rows:
         log(f"[kernel] {r['name']}: {r['launches']} launches on the {r['path']} path, "

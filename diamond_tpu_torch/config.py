@@ -9,11 +9,14 @@ to ``diamond_tpu.config.load_config("trainer", overrides)`` on every key the por
 ``load_config(overrides)`` takes the CLI's ``key=value`` strings: values through
 ``ast.literal_eval`` (``null``/``true``/``false`` as YAML spells them, anything else
 that is no Python literal stays a string), the group choices ``env=atari|fake`` and
-``agent=default``. The values the YAML derives by interpolation (the rew/end model's
-``seq_length``, the ``sample_weights`` that follow the denoiser's, ``env.test`` from
-``env.train``, the models' frame size and channels) are derived after the overrides,
-unless an override set them itself. A run saves its resolved config as JSON
-(``save_config``); resume reads it back (``load_config(overrides, base=...)``).
+``agent=default|csgo``. ``agent=csgo`` (configs/agent/csgo.yaml) is the two-stage world
+model: ``agent.upsampler`` set, the dynamics denoiser, the rew/end model and the
+actor-critic at ``env.train.size // upsampling_factor``. The values the YAML derives by
+interpolation (the rew/end model's ``seq_length``, the ``sample_weights`` that follow
+the denoiser's, ``env.test`` from ``env.train``, the models' frame size and channels)
+are derived after the overrides, unless an override set them itself. A run saves its
+resolved config as JSON (``save_config``); resume reads it back (``load_config(overrides,
+base=...)``).
 
 The class names and fields are those of the JAX package's config dataclasses
 (models/inner_model.py, denoiser.py, diffusion_sampler.py, rew_end_model.py,
@@ -46,13 +49,33 @@ class InnerModelConfig:
     channels: List[int] = _four(64)
     attn_depths: List[int] = _four(0)
     num_actions: Optional[int] = None
+    # the two-stage world model's upsampler: no action embedding, conditioned on the
+    # noise level alone (models/inner_model.py)
+    is_upsampler: bool = False
 
 
 @dataclass
 class DenoiserConfig:
+    """``upsampling_factor`` set: the two-stage world model's upsampler, an action-free
+    denoiser at full resolution conditioned on the bilinearly upsampled low-res frame
+    (models/denoiser.py ``loss_upsampler``)."""
+
     inner_model: InnerModelConfig = field(default_factory=InnerModelConfig)
     sigma_data: float = 0.5
     sigma_offset_noise: float = 0.3
+    upsampling_factor: Optional[int] = None
+
+    def __post_init__(self) -> None:
+        if self.upsampling_factor is not None:
+            if self.upsampling_factor <= 1:
+                raise ValueError(f"upsampling_factor must be > 1, got {self.upsampling_factor}")
+            self.inner_model.is_upsampler = True
+
+
+def csgo_upsampler() -> DenoiserConfig:
+    """configs/agent/csgo.yaml ``upsampler``: factor 4, one conditioning frame."""
+    return DenoiserConfig(inner_model=InnerModelConfig(num_steps_conditioning=1),
+                          upsampling_factor=4)
 
 
 @dataclass
@@ -99,12 +122,20 @@ class WorldModelEnvConfig:
 
 @dataclass
 class AgentConfig:
-    """``num_actions`` is injected into the three model configs (reference agent.py)."""
+    """``num_actions`` is injected into the three model configs (reference agent.py).
+    ``upsampler``: the two-stage world model's second stage (``agent=csgo``), else None;
+    it takes no actions."""
 
     denoiser: DenoiserConfig = field(default_factory=DenoiserConfig)
     rew_end_model: RewEndModelConfig = field(default_factory=RewEndModelConfig)
     actor_critic: ActorCriticConfig = field(default_factory=ActorCriticConfig)
     num_actions: int = NUM_ACTIONS_BREAKOUT
+    upsampler: Optional[DenoiserConfig] = None
+
+    @property
+    def downsample_factor(self) -> int:
+        """The dynamics resolution's divisor: the upsampler's factor, else 1."""
+        return self.upsampler.upsampling_factor if self.upsampler is not None else 1
 
     def __post_init__(self) -> None:
         self.denoiser.inner_model.num_actions = self.num_actions
@@ -181,6 +212,18 @@ class DenoiserTrainerConfig:
 class RewEndTrainerConfig:
     training: TrainingConfig = field(default_factory=lambda: TrainingConfig(seq_length=19))
     optimizer: OptimizerConfig = field(default_factory=lambda: OptimizerConfig(weight_decay=1e-2))
+
+
+@dataclass
+class UpsamplerTrainerConfig:
+    """trainer.yaml ``upsampler``: read only where ``agent.upsampler`` is set; B x
+    seq_length frames feed each step (time folds into batch)."""
+
+    training: TrainingConfig = field(default_factory=lambda: TrainingConfig(
+        batch_size=16, max_grad_norm=1.0, seq_length=2))
+    optimizer: OptimizerConfig = field(default_factory=lambda: OptimizerConfig(weight_decay=1e-2))
+    sigma_distribution: SigmaDistributionConfig = field(
+        default_factory=SigmaDistributionConfig)
 
 
 @dataclass
@@ -288,7 +331,8 @@ class StaticDatasetConfig:
 class TrainingLoopConfig:
     """trainer.yaml ``training``. ``num_workers_data_loaders``: the host prefetcher's
     producer threads (0: synchronous), read only without the device store.
-    ``wm_only`` (the two-stage world model's mode) is refused when set."""
+    ``wm_only``: train the world model alone (the denoiser and the upsampler), the
+    two-stage world model's mode on a static dataset."""
 
     should: bool = True
     num_final_epochs: int = 50
@@ -327,7 +371,7 @@ class EnvConfig:
 
 @dataclass
 class Config:
-    """trainer.yaml as the port reads it: ``agent`` is configs/agent/default.yaml (its
+    """trainer.yaml as the port reads it: ``agent`` is the chosen agent group (its
     ``num_actions`` is set from the env by the trainer), ``env`` the chosen env group."""
 
     wandb: WandbConfig = field(default_factory=WandbConfig)
@@ -341,6 +385,7 @@ class Config:
     evaluation: EvaluationConfig = field(default_factory=EvaluationConfig)
     world_model_env: WorldModelEnvConfig = field(default_factory=WorldModelEnvConfig)
     denoiser: DenoiserTrainerConfig = field(default_factory=DenoiserTrainerConfig)
+    upsampler: UpsamplerTrainerConfig = field(default_factory=UpsamplerTrainerConfig)
     rew_end_model: RewEndTrainerConfig = field(default_factory=RewEndTrainerConfig)
     actor_critic: ActorCriticTrainerConfig = field(default_factory=ActorCriticTrainerConfig)
     env: EnvConfig = field(default_factory=EnvConfig)
@@ -351,29 +396,26 @@ class Config:
 
 
 ENV_GROUPS = ("atari", "fake")
-_TWO_STAGE = ("the two-stage (upsampler) world model is not ported yet (ROADMAP.md, queue 1 "
-              "item 7)")
+AGENT_GROUPS = ("csgo", "default")
 
 
-def _refusal(key: str, value: Any) -> Optional[str]:
+def _refusal(key: str) -> Optional[str]:
     """Why an override is refused, or None."""
-    if (key, value) in (("agent", "csgo"), ("training.wm_only", True)) \
-            or key.split(".")[0] == "upsampler" or key.startswith("agent.upsampler"):
-        return _TWO_STAGE
     if key.startswith("tpu.distributed"):
         return "the trainer runs on one card (tpu.distributed)"
     return None
 
 
 # (target, source): the YAML interpolations, applied after the overrides unless an
-# override set the target (trainer.yaml:160, 179, 183, 196; agent/default.yaml; env/*)
+# override set the target (trainer.yaml:160, 165, 179, 183, 196; agent/*.yaml; env/*).
+# The models' frame size is derived apart (``derive``): it is divided by the
+# upsampler's factor under agent=csgo.
 DERIVED = (
+    ("upsampler.training.sample_weights", "denoiser.training.sample_weights"),
     ("rew_end_model.training.sample_weights", "denoiser.training.sample_weights"),
     ("actor_critic.training.sample_weights", "denoiser.training.sample_weights"),
     ("agent.rew_end_model.img_channels", "agent.denoiser.inner_model.img_channels"),
     ("agent.actor_critic.img_channels", "agent.denoiser.inner_model.img_channels"),
-    ("agent.rew_end_model.img_size", "env.train.size"),
-    ("agent.actor_critic.img_size", "env.train.size"),
     ("env.test.id", "env.train.id"),
     ("env.test.size", "env.train.size"),
 )
@@ -389,6 +431,16 @@ def env_group(name: str) -> EnvConfig:
             test=EnvSplitConfig(id="Fake-v0", done_on_life_loss=False, max_episode_steps=100),
             keymap="fake")
     raise ValueError(f"Unknown env group option {name!r}; available: {list(ENV_GROUPS)}")
+
+
+def agent_group(name: str) -> AgentConfig:
+    """The agent group's defaults (configs/agent/<name>.yaml): the DIAMOND Atari agent,
+    or with ``csgo`` the same three models and the upsampler."""
+    if name == "default":
+        return AgentConfig()
+    if name == "csgo":
+        return AgentConfig(upsampler=csgo_upsampler())
+    raise ValueError(f"Unknown agent group option {name!r}; available: {list(AGENT_GROUPS)}")
 
 
 def parse_value(raw: str) -> Any:
@@ -429,16 +481,24 @@ def _set(cfg: Any, path: str, value: Any) -> None:
     setattr(node, leaf, value)
 
 
+# The sections that are None by default, and what builds one where a saved config sets
+# it (agent.upsampler, under agent=csgo).
+OPTIONAL_SECTIONS = {"upsampler": csgo_upsampler}
+
+
 def apply_dict(cfg: Any, d: Dict[str, Any]) -> Any:
     """Set a nested dict's values onto a config in place (the saved JSON onto the
-    defaults)."""
+    defaults), each section's derived values derived again."""
     for k, v in d.items():
         cur = getattr(cfg, k)
+        if cur is None and v is not None and k in OPTIONAL_SECTIONS:
+            cur = OPTIONAL_SECTIONS[k]()
+            setattr(cfg, k, cur)
         if is_dataclass(cur):
             apply_dict(cur, v)
         else:
             setattr(cfg, k, v)
-    if isinstance(cfg, AgentConfig):
+    if hasattr(cfg, "__post_init__"):
         cfg.__post_init__()
     return cfg
 
@@ -448,22 +508,22 @@ def load_config(overrides: Sequence[str] = (), base: Optional[Dict[str, Any]] = 
     """The config of ``overrides`` (``key=value`` strings, group choices included).
     ``base``: a saved, resolved config (a resumed run's) to start from instead of the
     defaults; nothing is derived then, as a resolved YAML derives nothing again."""
-    group_env = "atari"
+    group_env, group_agent = "atari", "default"
     values = []
     for ov in overrides:
         if "=" not in ov:
             raise ValueError(f"Override must be key=value, got {ov!r}")
         key, _, raw = ov.partition("=")
         key, raw = key.strip().lstrip("+"), raw.strip()
-        why = _refusal(key, raw if key == "agent" else parse_value(raw))
+        why = _refusal(key)
         if why:
             raise ValueError(f"{ov}: {why}")
         if key == "env":
             env_group(raw)  # refuses an unknown group
             group_env = raw
         elif key == "agent":
-            if raw != "default":
-                raise ValueError(f"Unknown agent group option {raw!r}; available: ['default']")
+            agent_group(raw)
+            group_agent = raw
         else:
             values.append((key, parse_value(raw)))
 
@@ -472,6 +532,7 @@ def load_config(overrides: Sequence[str] = (), base: Optional[Dict[str, Any]] = 
         apply_dict(cfg, copy.deepcopy(base))
     else:
         cfg.env = env_group(group_env)
+        cfg.agent = agent_group(group_agent)
     for key, value in values:
         _set(cfg, key, copy.deepcopy(value))
     if base is None:
@@ -488,6 +549,10 @@ def derive(cfg: Config, overridden: set, group_env: str) -> None:
     for target, source in targets:
         if target not in overridden:
             _set(cfg, target, copy.deepcopy(_get(cfg, source)))
+    low_res = cfg.env.train.size // cfg.agent.downsample_factor  # agent/csgo.yaml
+    for target in ("agent.rew_end_model.img_size", "agent.actor_critic.img_size"):
+        if target not in overridden:
+            _set(cfg, target, low_res)
     if "rew_end_model.training.seq_length" not in overridden:
         cfg.rew_end_model.training.seq_length = (
             cfg.world_model_env.horizon + cfg.agent.denoiser.inner_model.num_steps_conditioning)

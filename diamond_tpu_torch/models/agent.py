@@ -1,10 +1,13 @@
-"""Agent container: the three models, initialised from a ``torch.Generator``, their
-snapshot IO and the optimizer (diamond_tpu/models/agent.py). The models live on the
-card unless the caller asks for another device (the CPU tests pass ``device="cpu"``).
-``state_dict`` is the JAX package's variable tree of each model ({"denoiser":
-{"params": ..., "constants": ...}, ...}, numpy), without the int8 ``quant``
+"""Agent container: the three models (four with the two-stage world model's upsampler,
+``AgentConfig.upsampler``), initialised from a ``torch.Generator``, their snapshot IO
+and the optimizer (diamond_tpu/models/agent.py). The models live on the card unless the
+caller asks for another device (the CPU tests pass ``device="cpu"``). ``state_dict`` is
+the JAX package's variable tree of each model ({"denoiser": {"params": ...,
+"constants": ...}, ..., "upsampler": ...}, numpy), without the int8 ``quant``
 collection, so ``save``/``load`` read and write the snapshots both packages share
-(checkpoint.py).
+(checkpoint.py). With an upsampler the dynamics denoiser, the rew/end model and the
+actor-critic work at the low resolution (``img_size // upsampling_factor``); torch
+modules need no frame size to be built, so only the config carries it.
 
 ``configure_opt`` is the JAX package's optax chain: global-norm clipping, then AdamW
 with the minGPT decay split as a mask on the parameter names (the flax paths) and a
@@ -27,9 +30,13 @@ from .denoiser import Denoiser
 from .rew_end_model import RewEndModel
 
 
+MODEL_NAMES = ("denoiser", "rew_end_model", "actor_critic")
+
+
 class Agent:
     """Parameters are float32; the models compute in ``compute_dtype``. The weights are
-    drawn from ``generator`` on the CPU, then moved to ``device``."""
+    drawn from ``generator`` on the CPU, model by model in ``model_names`` order, then
+    moved to ``device``."""
 
     def __init__(self, cfg: AgentConfig, compute_dtype: torch.dtype = torch.float32,
                  device: Union[str, torch.device] = "cuda",
@@ -38,6 +45,8 @@ class Agent:
         self.denoiser = Denoiser(cfg.denoiser, compute_dtype)
         self.rew_end_model = RewEndModel(cfg.rew_end_model, compute_dtype)
         self.actor_critic = ActorCritic(cfg.actor_critic, compute_dtype)
+        self.upsampler = Denoiser(cfg.upsampler, compute_dtype) \
+            if cfg.upsampler is not None else None
         if generator is not None:
             for net in self.nets.values():
                 init_weights(net, generator)
@@ -45,11 +54,18 @@ class Agent:
             net.to(device)
 
     @property
+    def model_names(self) -> tuple:
+        return MODEL_NAMES + (("upsampler",) if self.upsampler is not None else ())
+
+    @property
     def nets(self) -> Dict[str, nn.Module]:
         """Model name -> the nn.Module holding its weights (state-dict keys = the flax
         variable paths of the JAX package's model of that name)."""
-        return {"denoiser": self.denoiser.inner_model, "rew_end_model": self.rew_end_model.net,
+        nets = {"denoiser": self.denoiser.inner_model, "rew_end_model": self.rew_end_model.net,
                 "actor_critic": self.actor_critic.net}
+        if self.upsampler is not None:
+            nets["upsampler"] = self.upsampler.inner_model
+        return nets
 
     def state_dict(self) -> Dict[str, Any]:
         from ..interop.jax_vars import QUANT, module_to_variables
@@ -63,8 +79,8 @@ class Agent:
 
     def load_state_dict(self, sd: Dict[str, Any], names: Optional[Sequence[str]] = None
                         ) -> None:
-        """Load the trees of ``names`` (all three by default); a model's int8 collection
-        is dropped, since it was folded from the weights it had."""
+        """Load the trees of ``names`` (every model by default); a model's int8
+        collection is dropped, since it was folded from the weights it had."""
         from ..interop.jax_vars import QUANT, variables_to_state_dict
         from ..ops import quant
 
@@ -80,12 +96,16 @@ class Agent:
         save_agent_snapshot(self.state_dict(), path)
 
     def load(self, path_to_ckpt: Path, load_denoiser: bool = True,
-             load_rew_end_model: bool = True, load_actor_critic: bool = True) -> None:
-        """Load a snapshot's models, those whose flag is set."""
+             load_rew_end_model: bool = True, load_actor_critic: bool = True,
+             load_upsampler: bool = True) -> None:
+        """Load a snapshot's models, those whose flag is set (the upsampler's where the
+        agent has one)."""
         from ..checkpoint import load_agent_snapshot
 
         flags = {"denoiser": load_denoiser, "rew_end_model": load_rew_end_model,
                  "actor_critic": load_actor_critic}
+        if self.upsampler is not None:
+            flags["upsampler"] = load_upsampler
         self.load_state_dict(load_agent_snapshot(Path(path_to_ckpt)),
                              [n for n, f in flags.items() if f])
 

@@ -1,5 +1,8 @@
 """EDM (Karras et al.) preconditioning around InnerModel (diamond_tpu/models/denoiser.py):
-the denoising evaluation the sampler calls, and the autoregressive training loss.
+the denoising evaluation the sampler calls, the autoregressive training loss, and the
+two-stage world model's upsampler loss (``loss_upsampler``, a denoiser whose config has
+an ``upsampling_factor``) with its resolution changes (``downsample_avg``,
+``upsample_frame``).
 
 Exact-behavior notes carried over: the offset-noise sigma is folded into the
 conditioners, and the output is snapped to the 256-level [-1, 1] grid with a floor
@@ -16,6 +19,7 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from ..config import DenoiserConfig, SigmaDistributionConfig
 from .inner_model import InnerModel
@@ -55,6 +59,37 @@ def quantize_to_uint8_grid(x: torch.Tensor) -> torch.Tensor:
     return torch.floor((x + 1) / 2 * 255) / 255 * 2 - 1
 
 
+def downsample_avg(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Exact area downsample by an integer factor over the (H, W) axes of (..., H, W, C).
+    The factor x factor values of a window are summed one by one in row-major order,
+    then divided: the order of XLA's mean in the JAX function run op by op, so the result
+    is that function's bit for bit, on either device. (The mean of grid values often lies
+    exactly on a grid level, where ``quantize_to_uint8_grid``'s floor flips on a last-ulp
+    difference of a sum in another order; under jit XLA fuses the sum in another order.)"""
+    if factor == 1:
+        return x
+    *lead, h, w, c = x.shape
+    if h % factor or w % factor:
+        raise ValueError(f"downsample_avg: {h}x{w} is not a multiple of {factor}")
+    x = x.reshape(*lead, h // factor, factor, w // factor, factor, c)
+    acc = x[..., 0, :, 0, :]
+    for k in range(1, factor * factor):
+        acc = acc + x[..., k // factor, :, k % factor, :]
+    return acc / (factor * factor)
+
+
+def upsample_frame(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Bilinear upsample of the (H, W) axes of (..., H, W, C) by an integer factor: half-
+    pixel centres, edge samples clamped (``jax.image.resize(..., "bilinear")``, which
+    is ``align_corners=False``)."""
+    if factor == 1:
+        return x
+    *lead, h, w, c = x.shape
+    y = F.interpolate(x.reshape(-1, h, w, c).permute(0, 3, 1, 2), scale_factor=factor,
+                      mode="bilinear", align_corners=False)
+    return y.permute(0, 2, 3, 1).reshape(*lead, h * factor, w * factor, c)
+
+
 class Denoiser:
     """EDM wrapper; the weights are those of ``self.inner_model`` (an nn.Module whose
     state-dict keys are the flax paths of the JAX Denoiser's variables)."""
@@ -74,9 +109,9 @@ class Denoiser:
         return Conditioners(expand(c_in), expand(c_out), expand(c_skip), c_noise)
 
     def compute_model_output(self, noisy_next_obs: torch.Tensor, obs: torch.Tensor,
-                             act: torch.Tensor, cs: Conditioners,
+                             act: Optional[torch.Tensor], cs: Conditioners,
                              obs_features: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """obs is (B, H, W, T*C) frame-major."""
+        """obs is (B, H, W, T*C) frame-major; act is None for the upsampler."""
         rescaled_obs = obs / self.cfg.sigma_data
         rescaled_noise = noisy_next_obs * cs.c_in
         return self.inner_model(rescaled_noise, cs.c_noise, rescaled_obs, act, obs_features)
@@ -91,7 +126,7 @@ class Denoiser:
         return quantize_to_uint8_grid(d)
 
     def denoise(self, noisy_next_obs: torch.Tensor, sigma: Union[float, torch.Tensor],
-                obs: torch.Tensor, act: torch.Tensor,
+                obs: torch.Tensor, act: Optional[torch.Tensor],
                 obs_features: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Single denoising evaluation."""
         n, dev = noisy_next_obs.shape[0], noisy_next_obs.device
@@ -149,4 +184,35 @@ class Denoiser:
             loss = loss + (se.sum(dim=(1, 2, 3)) * m).sum() / denom
             frames[n + i] = self.wrap_model_output(noisy, model_output.detach(), cs)
         loss = loss / windows
+        return loss, {"loss_denoising": loss.detach()}
+
+    def loss_upsampler(self, obs: torch.Tensor, mask: torch.Tensor,
+                       sigma_cfg: SigmaDistributionConfig, draws: Optional[DenoiserDraws] = None,
+                       generator: Optional[torch.Generator] = None
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The upsampler's per-frame training loss (the JAX package's ``loss_upsampler``):
+        obs (B, T, H, W, C) float in [-1, 1] at full resolution, mask (B, T) bool. Time
+        folds into batch: each of the B * T frames is denoised, conditioned on its own
+        low-res rendition (area downsample by ``upsampling_factor``, snapped to the uint8
+        grid as the low-res model's samples are, upsampled bilinearly). The masked mean
+        squared error of the F-space prediction. Random numbers from ``draws`` (one
+        window of B * T frames), else from ``generator``. Returns (loss,
+        {"loss_denoising": detached loss})."""
+        f = self.cfg.upsampling_factor
+        if f is None:
+            raise ValueError("loss_upsampler needs a denoiser with an upsampling_factor")
+        b, t, h, w, c = obs.shape
+        x = obs.reshape(b * t, h, w, c)
+        m = mask.reshape(b * t).float()
+        if draws is None:
+            draws = draw_loss_noise(1, b * t, (h, w, c), generator, obs.device)
+        cond = upsample_frame(quantize_to_uint8_grid(downsample_avg(x, f)), f)
+        sigma = self.sample_sigma_training(draws.sigma[0], sigma_cfg)
+        noisy = self.apply_noise(x, sigma, draws.offset[0], draws.noise[0])
+        cs = self.compute_conditioners(sigma)
+        model_output = self.compute_model_output(noisy, cond, None, cs)
+        target = (x - cs.c_skip * noisy) / cs.c_out
+        se = (model_output - target) ** 2
+        denom = torch.clamp_min(m.sum() * (h * w * c), 1.0)
+        loss = (se.sum(dim=(1, 2, 3)) * m).sum() / denom
         return loss, {"loss_denoising": loss.detach()}

@@ -8,6 +8,7 @@ from .fused_norms import (adagn_silu, adagn_silu_bwd, adagn_silu_bwd_plain, adag
                           adagn_silu_with_moments, group_moments, groupnorm_silu,
                           groupnorm_silu_bwd, groupnorm_silu_bwd_plain, groupnorm_silu_plain,
                           groupnorm_silu_with_moments)
-from .fused_q8 import (QTensor, adagn_silu_q8, adagn_silu_q8_plain, conv3x3_qtensor,
-                       group_stats_channels, groupnorm_silu_q8, groupnorm_silu_q8_plain,
-                       norm_affine_silu_q8, norm_affine_silu_q8_plain)
+from .fused_q8 import (QTensor, adagn_silu_q8, adagn_silu_q8_plain, code_flips,
+                       conv3x3_qtensor, group_stats_channels, groupnorm_silu_q8,
+                       groupnorm_silu_q8_plain, norm_affine_silu_q8, norm_affine_silu_q8_plain,
+                       per_sample_code_flips, static_code_flips, ulp)

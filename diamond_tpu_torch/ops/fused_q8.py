@@ -32,7 +32,7 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
-from .conv3x3_q8 import conv3x3_int8, quantize_static, refuse_grad, true_div
+from .conv3x3_q8 import conv3x3_int8, quantize_static, refuse_grad, static_scale, true_div
 from .fused_norms import (GN_EPS, _per_channel, adagn_silu_plain, affine_rows, group_moments,
                           groupnorm_silu_plain, launch_plan)
 
@@ -77,11 +77,15 @@ def _on(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return t.to(device=x.device, dtype=torch.float32).contiguous()
 
 
-def norm_affine_silu_q8_plain(x: torch.Tensor, mean_c: torch.Tensor, inv_c: torch.Tensor,
-                              gamma: torch.Tensor, beta: torch.Tensor) -> QTensor:
+def _norm_affine_silu_f32(x, mean_c, inv_c, gamma, beta) -> torch.Tensor:
     row = lambda t: t.float()[:, None, None, :]  # noqa: E731
     y = (x.float() - row(mean_c)) * row(inv_c) * row(gamma) + row(beta)
-    y = y * torch.sigmoid(y)
+    return y * torch.sigmoid(y)
+
+
+def norm_affine_silu_q8_plain(x: torch.Tensor, mean_c: torch.Tensor, inv_c: torch.Tensor,
+                              gamma: torch.Tensor, beta: torch.Tensor) -> QTensor:
+    y = _norm_affine_silu_f32(x, mean_c, inv_c, gamma, beta)
     s = true_div(torch.clamp_min(y.abs().amax(dim=(1, 2, 3)), 1e-8)[:, None], 127.0)
     q = torch.clamp(torch.round(y / s[:, :, None, None]), -127, 127).to(torch.int8)
     return QTensor(q, s)
@@ -199,3 +203,56 @@ def groupnorm_silu_q8(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 for _fn in (norm_affine_silu_q8, adagn_silu_q8, groupnorm_silu_q8):
     _fn.launches = 0
     _fn.shapes = Counter()
+
+
+# -- holding codes to their plain version -------------------------------------------------
+
+
+def ulp(y: torch.Tensor, mantissa_bits: int) -> torch.Tensor:
+    """One unit in the last place of each value of y in a float format with
+    ``mantissa_bits`` stored mantissa bits (bf16 7, f32 23), as f32."""
+    _, e = torch.frexp(y.float())
+    return torch.ldexp(torch.ones_like(y, dtype=torch.float32), e - 1 - mantissa_bits)
+
+
+def code_flips(q: torch.Tensor, ref: torch.Tensor, y32: torch.Tensor, scale: torch.Tensor,
+               unit: torch.Tensor) -> tuple:
+    """Where a kernel's int8 codes q differ from its plain version's ref: (the largest
+    difference, the number of elements that differ, their largest margin). An element's
+    margin is the distance of the plain version's f32 value before quantization, y32,
+    from the code boundary (k + 1/2) * scale between its two codes, in units of ``unit``
+    (how far the kernel's own arithmetic may move that value: one ulp of the dtype it is
+    rounded to). A margin of at most 1 means the codes differ only because the value lies
+    at a rounding boundary. ``scale`` and ``unit`` broadcast to y32."""
+    d = (q.int() - ref.int()).abs()
+    flips = d > 0
+    n = int(flips.sum())
+    if n == 0:
+        return 0, 0, 0.0
+    k = torch.minimum(q.int(), ref.int())[flips].float()
+    boundary = (k + 0.5) * scale.float().expand_as(y32)[flips]
+    margin = (y32[flips] - boundary).abs() / unit.expand_as(y32)[flips]
+    return int(d.max()), n, margin.max().item()
+
+
+def static_code_flips(q: torch.Tensor, ref: torch.Tensor, plain, x: torch.Tensor, *rows,
+                      act_max: torch.Tensor) -> tuple:
+    """``code_flips`` of the static epilogue: ``plain`` (``adagn_silu_plain`` or
+    ``groupnorm_silu_plain`` on x and ``rows``) gives the f32 value before it is rounded
+    to x's dtype. The unit is one ulp of x's dtype at that value for bf16 x (K1/K2 round
+    their f32 result once: one value at a bf16 rounding boundary goes the other way), and
+    32 f32 ulps of the tensor's largest |value| for f32 x (the moments are summed in
+    another order)."""
+    y32 = plain(x.float(), *rows)
+    unit = ulp(y32, 7) if x.dtype == torch.bfloat16 else 32 * ulp(y32.abs().amax(), 23)
+    return code_flips(q, ref, y32, static_scale(act_max), unit)
+
+
+def per_sample_code_flips(qt: QTensor, ref: QTensor, x: torch.Tensor, *rows) -> tuple:
+    """``code_flips`` of the per-sample epilogue on x and its four ``rows``: the unit is
+    32 f32 ulps of each sample's largest |value| (sums in another order) and the
+    value's share of the scale's relative error (the kernel's own scale)."""
+    y32 = _norm_affine_silu_f32(x, *rows)
+    rel = ((qt.scale - ref.scale).abs() / ref.scale)[:, :, None, None]
+    unit = 32 * ulp(y32.abs().amax(dim=(1, 2, 3), keepdim=True), 23) + y32.abs() * rel
+    return code_flips(qt.q, ref.q, y32, ref.scale[:, :, None, None], unit)

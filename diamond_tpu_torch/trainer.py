@@ -16,6 +16,14 @@ evaluate -> log and checkpoint, per epoch.
     otherwise roll out on its old weights;
   * ``training.model_free``: the actor-critic alone, on recordings of the real env;
     ``static_dataset.path``: no collection, a fixed dataset;
+  * the two-stage world model (``agent=csgo``, ``agent.upsampler`` set): the upsampler
+    is a fourth component, trained per frame on the dataset's full-resolution segments,
+    and the dynamics denoiser trains on their area downsample, made in its step. It
+    collects nothing (the policy and the rew/end model work at the low resolution), so
+    it needs a static dataset; ``training.wm_only`` trains the denoiser and the
+    upsampler alone and evaluates both. Imagination RL with an upsampler is refused, as
+    in the JAX package; int8 is calibrated only for imagination, so a wm_only run never
+    calibrates;
   * after the last epoch, the final-protocol collection (``final_return_mean``);
   * checkpoints: the full state (``checkpoints/state.pt``, ``torch.save``: weights,
     AdamW moments, step counts, accumulators, counters, both datasets' state), the
@@ -32,8 +40,7 @@ key at its end (``_materialize_logs``). ``timings`` holds the wall seconds of ea
 of the run (the card synchronised at the parts' boundaries only): one entry for the
 initial collection (epoch 0), one per epoch, one for the final collection.
 
-Not ported: the data-parallel mesh (one card), the host RSS guard, the two-stage world
-model (``agent.upsampler``, refused by the config).
+Not ported: the data-parallel mesh (one card), the host RSS guard.
 """
 
 from __future__ import annotations
@@ -66,13 +73,13 @@ from .ops import quant
 from .training import (OptimizerSpec, TrainState, make_ac_train_step,
                        make_denoiser_eval_step, make_denoiser_train_step,
                        make_model_free_ac_train_step, make_rew_end_eval_step,
-                       make_rew_end_train_step)
+                       make_rew_end_train_step, make_upsampler_eval_step,
+                       make_upsampler_train_step)
 from .utils import (Logs, MetricsLogger, count_parameters, final_protocol_metrics,
                     keep_agent_copies_every,
                     process_confusion_matrices_if_any_and_compute_classification_metrics,
                     save_info_for_import_script, set_seed)
 
-MODEL_NAMES = ("denoiser", "rew_end_model", "actor_critic")
 POOL_CHUNK = 512
 
 
@@ -91,10 +98,13 @@ class Trainer:
         set_seed(seed)
         self._np_rng = np.random.default_rng(seed)
         self._gens = {name: torch.Generator(device=self.device).manual_seed(seed + i)
-                      for i, name in enumerate(("denoiser", "rollout"), start=3)}
+                      for i, name in enumerate(("denoiser", "rollout", "upsampler"), start=3)}
 
         self._is_static_dataset = cfg.static_dataset.path is not None
         self._is_model_free = cfg.training.model_free
+        self._wm_only = cfg.training.wm_only
+        self._has_upsampler = cfg.agent.upsampler is not None
+        self._ds_factor = cfg.agent.downsample_factor
         self._compute_dtype = torch.bfloat16 if cfg.tpu.compute_dtype == "bfloat16" \
             else torch.float32
         self._int8_rollout = cfg.tpu.int8_rollout
@@ -126,6 +136,12 @@ class Trainer:
         self.test_dataset.load_from_default_path()
         if self._is_static_dataset:
             self.train_dataset.is_static = True
+        if self._has_upsampler and not self._is_static_dataset:
+            raise ValueError(
+                "two-stage (agent.upsampler) training collects nothing itself — the "
+                "policy/reward nets live at the dynamics (low) resolution and cannot act "
+                "on full-res env frames; set static_dataset.path (the csgo operating "
+                "mode, with training.wm_only=True)")
 
         # envs (host side)
         train_env = make_env(num_envs=cfg.collection.train.num_envs, **asdict(cfg.env.train))
@@ -138,6 +154,7 @@ class Trainer:
         agent_cfg.__post_init__()
         self.agent = Agent(agent_cfg, self._compute_dtype, device=self.device,
                            generator=torch.Generator().manual_seed(seed))
+        self.model_names = self.agent.model_names
         init = cfg.initialization
         if init.path_to_ckpt is not None:
             self.agent.load(Path(init.path_to_ckpt), load_denoiser=init.load_denoiser,
@@ -157,14 +174,20 @@ class Trainer:
         self._opt_specs = {name: OptimizerSpec.from_cfg(getattr(cfg, name).optimizer,
                                                         getattr(cfg, name).training,
                                                         cfg.tpu.grad_acc_sum)
-                           for name in MODEL_NAMES}
+                           for name in self.model_names}
         self._tx = {name: spec.build() for name, spec in self._opt_specs.items()}
         self._sigma_cfg = cfg.denoiser.sigma_distribution
         self._loss_cfg = cfg.actor_critic.actor_critic_loss
         self.engine = ImaginationEngine(self.agent.denoiser, self.agent.rew_end_model,
                                         self.agent.actor_critic, cfg.world_model_env)
         self._denoiser_step = make_denoiser_train_step(self.agent.denoiser,
-                                                       self._tx["denoiser"], self._sigma_cfg)
+                                                       self._tx["denoiser"], self._sigma_cfg,
+                                                       self._ds_factor)
+        if self._has_upsampler:
+            up_sigma = cfg.upsampler.sigma_distribution
+            self._upsampler_step = make_upsampler_train_step(
+                self.agent.upsampler, self._tx["upsampler"], up_sigma)
+            self._upsampler_eval = make_upsampler_eval_step(self.agent.upsampler, up_sigma)
         self._rew_end_step = make_rew_end_train_step(self.agent.rew_end_model,
                                                      self._tx["rew_end_model"])
         self._ac_step = make_ac_train_step(self.engine, self.agent.actor_critic,
@@ -176,11 +199,12 @@ class Trainer:
                                         seed=seed + 2)
             self._mf_ac_step = make_model_free_ac_train_step(
                 self.agent.actor_critic, self._tx["actor_critic"], self._loss_cfg)
-        self._denoiser_eval = make_denoiser_eval_step(self.agent.denoiser, self._sigma_cfg)
+        self._denoiser_eval = make_denoiser_eval_step(self.agent.denoiser, self._sigma_cfg,
+                                                      self._ds_factor)
         self._rew_end_eval = make_rew_end_eval_step(self.agent.rew_end_model)
         self.train_states: Dict[str, TrainState] = {
             name: TrainState.create(self.agent.nets[name], self._tx[name])
-            for name in MODEL_NAMES}
+            for name in self.model_names}
 
         # data pipelines
         self._seq_len_denoiser = (cfg.agent.denoiser.inner_model.num_steps_conditioning + 1
@@ -209,8 +233,8 @@ class Trainer:
         self.epoch = 0
         self.num_epochs_collect: Optional[int] = None
         self.num_episodes_test = 0
-        self.num_batch_train = {name: 0 for name in MODEL_NAMES}
-        self.num_batch_test = {name: 0 for name in MODEL_NAMES}
+        self.num_batch_train = {name: 0 for name in self.model_names}
+        self.num_batch_test = {name: 0 for name in self.model_names}
         self.timings: List[Dict[str, Any]] = []
         self._timing: Dict[str, Any] = {}
 
@@ -283,6 +307,10 @@ class Trainer:
     def _ensure_imagination(self) -> None:
         cfg = self._cfg
         c = cfg.actor_critic.training
+        if self._has_upsampler:
+            raise ValueError(
+                "imagination RL with a two-stage world model needs a low-res IC pool — "
+                "not supported; set training.wm_only=True (or training.model_free=True)")
         if self._pool_manager is None:
             weights = None if (self._is_static_dataset
                                and cfg.static_dataset.ignore_sample_weights) \
@@ -441,7 +469,12 @@ class Trainer:
         to_log: Logs = []
         if self._device_store is not None:  # mirror the episodes collected since
             self._device_store.sync(self.train_dataset)
-        names = ["actor_critic"] if self._is_model_free else MODEL_NAMES
+        if self._is_model_free:
+            names = ["actor_critic"]
+        elif self._wm_only:
+            names = [n for n in self.model_names if n in ("denoiser", "upsampler")]
+        else:
+            names = list(self.model_names)
         for name in names:
             c = getattr(self._cfg, name).training
             if self.epoch > c.start_after_epochs:
@@ -459,6 +492,8 @@ class Trainer:
         spec = self._opt_specs[name]
         if name == "denoiser":
             step = self.denoiser_train_step
+        elif name == "upsampler":
+            step = self.upsampler_train_step
         elif name == "rew_end_model":
             step = self.rew_end_train_step
         elif self._is_model_free:
@@ -478,6 +513,14 @@ class Trainer:
                                           next(self._batches("denoiser")),
                                           generator=self._gens["denoiser"])
         self.train_states["denoiser"] = ts
+        return metrics
+
+    def upsampler_train_step(self) -> Dict[str, Any]:
+        """One upsampler step on the next batch of full-resolution segments."""
+        ts, metrics = self._upsampler_step(self.train_states["upsampler"],
+                                           next(self._batches("upsampler")),
+                                           generator=self._gens["upsampler"])
+        self.train_states["upsampler"] = ts
         return metrics
 
     def rew_end_train_step(self) -> Dict[str, Any]:
@@ -562,10 +605,13 @@ class Trainer:
         return out
 
     def test_agent(self) -> Logs:
-        """The denoiser's and rew/end model's losses over the test episodes, gathered
-        from a device store of their own (made anew each evaluation)."""
+        """The denoiser's and rew/end model's losses (and the upsampler's; under wm_only
+        not the rew/end model's) over the test episodes, gathered from a device store of
+        their own (made anew each evaluation)."""
         to_log: Logs = []
-        names = ["denoiser", "rew_end_model"]
+        names = ["denoiser", "rew_end_model"] + (["upsampler"] if self._has_upsampler else [])
+        if self._wm_only:
+            names.remove("rew_end_model")
         test_store = None
         if self._device_store is not None and self.test_dataset.num_episodes:
             size = self._cfg.env.train.size
@@ -587,6 +633,8 @@ class Trainer:
             for db in batches:
                 if name == "denoiser":
                     metrics = self._denoiser_eval(db, generator=self._gens["denoiser"])
+                elif name == "upsampler":
+                    metrics = self._upsampler_eval(db, generator=self._gens["upsampler"])
                 else:
                     metrics = self._rew_end_eval(db)
                 metrics = dict(metrics)
@@ -626,7 +674,7 @@ class Trainer:
         }
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
-        for name in MODEL_NAMES:
+        for name in self.model_names:
             tss = sd["train_states"][name]
             ts = self.train_states[name]
             ts.net.load_state_dict(tss["net"], strict=True)

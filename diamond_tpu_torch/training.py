@@ -23,7 +23,11 @@ uint8 observations: the conv trunk encodes all B * T frames in one call (it has 
 recurrence, and its norms are per sample, so the numbers are those of one call a
 step), then the LSTM head runs step by step with its carry gated by 1 - reset_mask.
 
-Not ported yet: the two-stage (upsampler) denoiser.
+The two-stage world model: the denoiser step with ``downsample_factor`` f > 1 trains the
+dynamics denoiser on its segments' area downsample by f, snapped to the uint8 grid
+(``_two_stage_obs``, what the stateful env's buffers hold), inside the step; the
+upsampler step takes ``Denoiser.loss_upsampler`` of the full-resolution frames, time
+folded into batch, through the same kernels.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ from .data.segment import DeviceBatch
 from .envs.world_model_env import ICPool, ImagState, ImaginationEngine, RolloutDraws
 from .models.actor_critic import ActorCritic
 from .models.agent import AdamWClip, configure_opt
-from .models.denoiser import Denoiser, DenoiserDraws
+from .models.denoiser import Denoiser, DenoiserDraws, downsample_avg, quantize_to_uint8_grid
 from .models.rew_end_model import RewEndModel
 
 
@@ -115,36 +119,42 @@ def apply_update(tx: AdamWClip, state: TrainState) -> Tuple[TrainState, torch.Te
 # Denoiser
 
 
+def _two_stage_obs(obs_u8: torch.Tensor, downsample_factor: int) -> torch.Tensor:
+    """The dynamics model's view of uint8 frames: as floats, and with ``downsample_factor``
+    > 1 (the two-stage world model) their area downsample snapped to the uint8 grid, as
+    the rollout's conditioning buffers hold them."""
+    obs = obs_to_float(obs_u8)
+    if downsample_factor == 1:
+        return obs
+    return quantize_to_uint8_grid(downsample_avg(obs, downsample_factor))
+
+
 def _denoiser_loss(denoiser: Denoiser, sigma_cfg: SigmaDistributionConfig,
                    downsample_factor: int) -> Callable:
-    if downsample_factor != 1:
-        raise ValueError("downsample_factor > 1 (the two-stage world model) is not ported yet")
-
     def loss_fn(batch: DeviceBatch, draws: Optional[DenoiserDraws],
                 generator: Optional[torch.Generator]):
-        return denoiser.loss(obs_to_float(batch.obs), batch.act, batch.mask_padding, sigma_cfg,
-                             draws, generator)
+        return denoiser.loss(_two_stage_obs(batch.obs, downsample_factor), batch.act,
+                             batch.mask_padding, sigma_cfg, draws, generator)
 
     return loss_fn
 
 
-def make_denoiser_train_step(denoiser: Denoiser, tx: AdamWClip,
-                             sigma_cfg: SigmaDistributionConfig,
-                             downsample_factor: int = 1) -> Callable:
-    """The denoiser step: ``step(state, batch, draws=None, generator=None) -> (state,
-    metrics)``. It takes ``denoiser.loss`` of the uint8 segments in ``batch`` (random
-    numbers from ``draws``, else from ``generator``), backpropagates it into
-    ``state.net`` (the denoiser's inner model) and updates it. The metrics
-    (``loss_denoising``, ``grad_norm_before_clip``) stay on the device.
-    ``downsample_factor`` > 1 (the two-stage world model) is refused."""
-    loss_fn = _denoiser_loss(denoiser, sigma_cfg, downsample_factor)
+def _upsampler_loss(upsampler: Denoiser, sigma_cfg: SigmaDistributionConfig) -> Callable:
+    def loss_fn(batch: DeviceBatch, draws: Optional[DenoiserDraws],
+                generator: Optional[torch.Generator]):
+        return upsampler.loss_upsampler(obs_to_float(batch.obs), batch.mask_padding, sigma_cfg,
+                                        draws, generator)
 
+    return loss_fn
+
+
+def _make_diffusion_step(model: Denoiser, tx: AdamWClip, loss_fn: Callable,
+                         what: str) -> Callable:
     def step(state: TrainState, batch: DeviceBatch, draws: Optional[DenoiserDraws] = None,
              generator: Optional[torch.Generator] = None
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        if state.net is not denoiser.inner_model:
-            raise ValueError("make_denoiser_train_step: state.net must be the denoiser's "
-                             "inner model")
+        if state.net is not model.inner_model:
+            raise ValueError(f"{what}: state.net must be the model's inner model")
         state.opt_state.zero_grad(set_to_none=True)
         with torch.enable_grad():
             loss, metrics = loss_fn(batch, draws, generator)
@@ -156,18 +166,57 @@ def make_denoiser_train_step(denoiser: Denoiser, tx: AdamWClip,
     return step
 
 
-def make_denoiser_eval_step(denoiser: Denoiser, sigma_cfg: SigmaDistributionConfig,
-                            downsample_factor: int = 1) -> Callable:
-    """``step(batch, draws=None, generator=None) -> metrics``: the training loss of a
-    batch under no grad (``loss_denoising``, on the device)."""
-    loss_fn = _denoiser_loss(denoiser, sigma_cfg, downsample_factor)
-
+def _make_eval_step(loss_fn: Callable) -> Callable:
     def step(batch: DeviceBatch, draws: Optional[DenoiserDraws] = None,
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         with torch.no_grad():
             return loss_fn(batch, draws, generator)[1]
 
     return step
+
+
+def make_denoiser_train_step(denoiser: Denoiser, tx: AdamWClip,
+                             sigma_cfg: SigmaDistributionConfig,
+                             downsample_factor: int = 1) -> Callable:
+    """The denoiser step: ``step(state, batch, draws=None, generator=None) -> (state,
+    metrics)``. It takes ``denoiser.loss`` of the uint8 segments in ``batch`` (random
+    numbers from ``draws``, else from ``generator``), backpropagates it into
+    ``state.net`` (the denoiser's inner model) and updates it. The metrics
+    (``loss_denoising``, ``grad_norm_before_clip``) stay on the device.
+    ``downsample_factor`` > 1 (the two-stage world model): the loss takes the frames'
+    area downsample (``_two_stage_obs``), made in the step."""
+    return _make_diffusion_step(denoiser, tx, _denoiser_loss(denoiser, sigma_cfg,
+                                                             downsample_factor),
+                                "make_denoiser_train_step")
+
+
+def make_denoiser_eval_step(denoiser: Denoiser, sigma_cfg: SigmaDistributionConfig,
+                            downsample_factor: int = 1) -> Callable:
+    """``step(batch, draws=None, generator=None) -> metrics``: the training loss of a
+    batch under no grad (``loss_denoising``, on the device)."""
+    return _make_eval_step(_denoiser_loss(denoiser, sigma_cfg, downsample_factor))
+
+
+# ---------------------------------------------------------------------------
+# Upsampler (the two-stage world model)
+
+
+def make_upsampler_train_step(upsampler: Denoiser, tx: AdamWClip,
+                              sigma_cfg: SigmaDistributionConfig) -> Callable:
+    """The upsampler step: ``step(state, batch, draws=None, generator=None) -> (state,
+    metrics)``. It takes ``upsampler.loss_upsampler`` of the full-resolution uint8
+    segments in ``batch`` (B x T frames, one window of ``DenoiserDraws``), backpropagates
+    it into ``state.net`` (the upsampler's inner model) and updates it; the metrics
+    (``loss_denoising``, ``grad_norm_before_clip``) stay on the device."""
+    return _make_diffusion_step(upsampler, tx, _upsampler_loss(upsampler, sigma_cfg),
+                                "make_upsampler_train_step")
+
+
+def make_upsampler_eval_step(upsampler: Denoiser, sigma_cfg: SigmaDistributionConfig
+                             ) -> Callable:
+    """``step(batch, draws=None, generator=None) -> metrics``: the upsampler's loss of a
+    batch under no grad."""
+    return _make_eval_step(_upsampler_loss(upsampler, sigma_cfg))
 
 
 # ---------------------------------------------------------------------------

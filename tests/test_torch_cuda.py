@@ -30,7 +30,8 @@ from diamond_tpu_torch.ops import (QTensor, adagn_silu, adagn_silu_plain, adagn_
                                    conv3x3_int8_plain, conv3x3_plain, conv3x3_qtensor,
                                    groupnorm_silu, groupnorm_silu_plain, groupnorm_silu_q8,
                                    groupnorm_silu_q8_plain, norm_affine_silu_q8,
-                                   norm_affine_silu_q8_plain, quant, quantize_static)
+                                   norm_affine_silu_q8_plain, quant, quantize_static,
+                                   static_code_flips)
 
 
 @pytest.mark.cuda
@@ -108,6 +109,14 @@ def _codes_close(a, b, share=1e-3):
     apart, a value can round to the neighbouring code)."""
     d = (a.int() - b.int()).abs()
     assert d.max().item() <= 1 and (d > 0).float().mean().item() <= share
+
+
+def _codes_at_boundary(flips, numel, share=1e-3):
+    """``ops.code_flips``' (largest, count, margin): codes at most 1 apart, every element
+    that differs within one unit of its code boundary (a value at a rounding boundary),
+    in at most ``share`` of the elements or in one."""
+    most, n, margin = flips
+    assert most <= 1 and margin <= 1 and n <= max(1, share * numel), flips
 
 
 @pytest.mark.cuda
@@ -870,3 +879,250 @@ def test_trainer_runs_on_the_card_and_resumes(tmp_path, mode):
     resumed._cfg.training.num_final_epochs += 1
     resumed.run()
     assert resumed.epoch == 3
+
+
+# ---------------------------------------------------------------------------
+# The two-stage (csgo) world model: its shapes, a play step, its train steps, its trainer
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_two_stage_shapes_match_plain_versions(dtype):
+    """The kernels at the two-stage model's new shapes against their plain versions: the
+    dynamics U-Net's 4x4 and 2x2 levels at 64 channels (B = 1 in play, 32 in training),
+    the stride-2 conv 4x4 -> 2x2, the upsampler's conv_in (Cin 6 at 64x64, B 1 and 32) and
+    the dynamics conv_in (Cin 15 at 16x16); K1/K2 at 2x2x64 (two groups of four pixels)
+    and at 64x64x64 with B = 1; their backwards, the data and weight gradients at 2x2 and
+    4x4 and the weight gradient at Cin 6; K4 and K5 at B = 1. The tolerances of
+    test_cuda_kernels_match_plain_versions and test_backward_kernels_match_plain_versions;
+    K5 exactly; K4 on eight inputs a shape, within one code, and only where the plain
+    value lies at a rounding boundary (as chip_smoke.py holds it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diamond_tpu_torch.ops import (adagn_silu_bwd, adagn_silu_bwd_plain,
+                                       adagn_silu_with_moments, conv3x3_dgrad,
+                                       conv3x3_dgrad_plain, conv3x3_wgrad, conv3x3_wgrad_plain,
+                                       groupnorm_silu_bwd, groupnorm_silu_bwd_plain,
+                                       groupnorm_silu_with_moments)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    f32 = dt == torch.float32
+    tol = 1e-3 if f32 else 1 / 64
+    g = torch.Generator(device="cuda").manual_seed(31)
+    for b, h, cin, cout, s in ((1, 2, 64, 64, 1), (32, 2, 128, 64, 1), (1, 4, 64, 64, 1),
+                               (1, 4, 64, 64, 2), (32, 4, 64, 64, 2), (1, 64, 6, 64, 1),
+                               (32, 64, 6, 64, 1), (1, 16, 15, 64, 1), (1, 64, 64, 3, 1)):
+        x = torch.randn(b, h, h, cin, device="cuda", generator=g).to(dt)
+        k = (torch.randn(3, 3, cin, cout, device="cuda", generator=g) / (9 * cin) ** .5).to(dt)
+        bb = torch.randn(cout, device="cuda", generator=g)
+        _bwd_close(conv3x3(x, k, bb, s), conv3x3_plain(x, k, bb, s), tol)
+        dy = torch.randn(b, (h - 1) // s + 1, (h - 1) // s + 1, cout, device="cuda",
+                         generator=g).to(dt)
+        dw, db = conv3x3_wgrad(x, dy, s, with_bias=True)
+        _bwd_close(dw, conv3x3_wgrad_plain(x, dy, s), tol)
+        _bwd_close(db, dy.sum(dim=(0, 1, 2), dtype=torch.float32), 1e-3)
+        if cin in (64, 128):
+            _bwd_close(conv3x3_dgrad(dy, k, s, (h, h)), conv3x3_dgrad_plain(dy, k, s, (h, h)),
+                       tol)
+    for b, h in ((1, 2), (32, 2), (1, 4), (1, 64), (32, 8)):
+        x, ss, sc, bi = _norm_inputs(b, h, 64, dt, g, dt)
+        _bwd_close(adagn_silu(x, ss, 2), adagn_silu_plain(x, ss, 2), tol if f32 else 1 / 64)
+        _bwd_close(groupnorm_silu(x, sc, bi, 2), groupnorm_silu_plain(x, sc, bi, 2),
+                   tol if f32 else 1 / 64)
+        dy = torch.randn(x.shape, device="cuda", generator=g).to(dt)
+        _, mom = adagn_silu_with_moments(x, ss, 2)
+        for k, (a, r) in enumerate(zip(adagn_silu_bwd(x, dy, ss, 2, True, mom),
+                                       adagn_silu_bwd_plain(x, dy, ss, 2, True))):
+            _bwd_close(a, r, (1e-4 if k == 0 else 1e-3) if f32 else 1 / 64)
+        _, mom = groupnorm_silu_with_moments(x, sc, bi, 2)
+        for k, (a, r) in enumerate(zip(groupnorm_silu_bwd(x, dy, sc, bi, 2, True, mom),
+                                       groupnorm_silu_bwd_plain(x, dy, sc, bi, 2, True))):
+            _bwd_close(a, r, (1e-4 if k == 0 else 1e-3) if f32 else 1 / 64)
+        if b == 1:  # K4 and K5 as the int8 play path runs them, K4 on several inputs
+            for i in range(8):
+                if i:
+                    x, ss = _norm_inputs(b, h, 64, dt, g, dt)[:2]
+                am = adagn_silu_plain(x, ss, 2).float().abs().amax(dim=(0, 1, 2)) * 0.95
+                q, ref = adagn_silu_q8(x, ss, 2, am), adagn_silu_q8_plain(x, ss, 2, am)
+                torch.cuda.synchronize()
+                _codes_at_boundary(static_code_flips(q, ref, adagn_silu_plain, x, ss, 2,
+                                                     act_max=am), q.numel())
+            wq = torch.randint(-127, 128, (3, 3, 64, 64), generator=g, device="cuda",
+                               dtype=torch.int8)
+            ws = torch.rand(64, generator=g, device="cuda") * 1e-3 + 1e-4
+            args = (q, wq, ws, None, 0.1 * torch.randn(64, device="cuda", generator=g), 1, dt)
+            torch.testing.assert_close(conv3x3_int8(*args), conv3x3_int8_plain(*args),
+                                       rtol=0, atol=0)
+
+
+def _two_stage_tiny(device, dtype=torch.float32):
+    """A tiny two-stage agent (factor 2, 16x16 frames, 8x8 dynamics) with its engine."""
+    from diamond_tpu_torch import config as tc
+    from diamond_tpu_torch.envs.world_model_env import ImaginationEngine
+    from diamond_tpu_torch.models import Agent
+
+    inner = dict(cond_channels=16, depths=[1, 1], channels=[32, 32], attn_depths=[0, 0])
+    cfg = tc.AgentConfig(
+        denoiser=tc.DenoiserConfig(inner_model=tc.InnerModelConfig(num_steps_conditioning=2,
+                                                                   **inner)),
+        rew_end_model=tc.RewEndModelConfig(lstm_dim=32, img_size=8, cond_channels=8,
+                                           depths=[1, 1], channels=[32, 32],
+                                           attn_depths=[0, 0]),
+        actor_critic=tc.ActorCriticConfig(lstm_dim=32, img_size=8, channels=[16, 32],
+                                          down=[1, 1]),
+        num_actions=3,
+        upsampler=tc.DenoiserConfig(inner_model=tc.InnerModelConfig(
+            num_steps_conditioning=1, **inner), upsampling_factor=2))
+    agent = Agent(cfg, dtype, device=device, generator=torch.Generator().manual_seed(0))
+    wm = tc.WorldModelEnvConfig(horizon=3)
+    return agent, ImaginationEngine(agent.denoiser, agent.rew_end_model, agent.actor_critic, wm)
+
+
+@pytest.mark.cuda
+def test_two_stage_play_steps_on_the_card_match_the_cpu():
+    """Four steps of the two-stage WorldModelEnv (B = 2, horizon 3: a refill) in f32 on
+    the card (kernels, TF32 off) against the CPU (plain versions), the same weights, ICs
+    and injected draws: rewards, ends and truncations equal, frames within one grid
+    level; the card's step reads back once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import numpy as np
+
+    from diamond_tpu_torch import ops
+    from diamond_tpu_torch.envs.wm_env_stateful import StepDraws, WorldModelEnv
+    from diamond_tpu_torch.envs.world_model_env import gumbel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    ics = (rng.integers(0, 256, (8, 2, 16, 16, 3), dtype=np.uint8),
+           rng.integers(0, 3, (8, 2)).astype(np.int32),
+           (0.1 * rng.normal(size=(8, 32))).astype(np.float32),
+           (0.1 * rng.normal(size=(8, 32))).astype(np.float32))
+    g = torch.Generator().manual_seed(1)
+    draws = [StepDraws(torch.randn(2, 8, 8, 3, generator=g), gumbel((2, 3), g, "cpu"),
+                       gumbel((2, 2), g, "cpu"), torch.randn(2, 16, 16, 3, generator=g))
+             for _ in range(4)]
+    outs = []
+    for dev in ("cuda", "cpu"):
+        agent, engine = _two_stage_tiny(dev)
+        pos = [0]
+
+        def provider(n):
+            out = tuple(a[pos[0]:pos[0] + n] for a in ics)
+            pos[0] += n
+            return out
+
+        env = WorldModelEnv(engine, provider, 2, upsampler=agent.upsampler)
+        env.reset()
+        ops.conv3x3.launches = 0
+        outs.append([env.step([i % 3, 1], StepDraws(*(d.to(dev) for d in dr)))
+                     for i, dr in enumerate(draws)])
+        if dev == "cuda":
+            assert ops.conv3x3.launches > 0
+    for c, p in zip(*outs):
+        for k in (1, 2, 3):
+            np.testing.assert_array_equal(c[k], p[k])
+        assert np.abs(c[0].astype(int) - p[0].astype(int)).max() <= 1
+        assert np.abs(c[4]["low_res_obs"].astype(int)
+                      - p[4]["low_res_obs"].astype(int)).max() <= 1
+    assert any("final_observation" in c[4] for c in outs[0])
+
+
+@pytest.mark.cuda
+def test_two_stage_train_steps_make_no_sync():
+    """The upsampler step and the two-stage denoiser step (frames downsampled in the step)
+    on the card under the sync debug mode set to error: no host-device synchronisation,
+    finite metrics, the backward kernels launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diamond_tpu_torch import config as tc
+    from diamond_tpu_torch import ops
+    from diamond_tpu_torch.data.segment import DeviceBatch
+    from diamond_tpu_torch.models.agent import configure_opt
+    from diamond_tpu_torch.training import (TrainState, make_denoiser_train_step,
+                                            make_upsampler_train_step)
+
+    agent, _ = _two_stage_tiny("cuda", torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(2)
+
+    def batch(b, t):
+        z = dict(device="cuda", dtype=torch.int32)
+        return DeviceBatch(
+            obs=torch.randint(0, 256, (b, t, 16, 16, 3), generator=g, device="cuda",
+                              dtype=torch.uint8),
+            act=torch.randint(0, 3, (b, t), generator=g, device="cuda", dtype=torch.int32),
+            rew=torch.zeros((b, t), device="cuda"), end=torch.zeros((b, t), **z),
+            trunc=torch.zeros((b, t), **z),
+            mask_padding=torch.ones((b, t), dtype=torch.bool, device="cuda"),
+            final_obs=torch.zeros((b, 16, 16, 3), dtype=torch.uint8, device="cuda"),
+            has_final_obs=torch.zeros((b,), dtype=torch.bool, device="cuda"))
+
+    sigma = tc.SigmaDistributionConfig()
+    for model, make, b, t in ((agent.upsampler, make_upsampler_train_step, 4, 2),
+                              (agent.denoiser, make_denoiser_train_step, 4, 4)):
+        tx = configure_opt(1e-4, 1e-2, 1e-8, 1.0, 0)
+        kw = {} if make is make_upsampler_train_step else {"downsample_factor": 2}
+        step = make(model, tx, sigma, **kw)
+        state = TrainState.create(model.inner_model, tx)
+        data = batch(b, t)
+        step(state, data, generator=g)  # warm-up: the kernels' first loads
+        ops.conv3x3_wgrad.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, m = step(state, data, generator=g)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert ops.conv3x3_wgrad.launches > 0
+        assert all(torch.isfinite(v).all() for v in m.values())
+
+
+@pytest.mark.cuda
+def test_two_stage_trainer_runs_on_the_card_and_resumes(tmp_path):
+    """The tiny wm_only two-stage trainer (agent=csgo, factor 2, 16x16 frames) on a
+    static dataset on the card: two epochs with evaluation, a resume equal to the saved
+    state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import numpy as np
+
+    from diamond_tpu_torch.config import load_config
+    from diamond_tpu_torch.data.dataset import Dataset
+    from diamond_tpu_torch.data.episode import Episode
+    from diamond_tpu_torch.trainer import Trainer
+
+    rng = np.random.default_rng(0)
+    for split in ("train", "test"):
+        ds = Dataset(tmp_path / "static" / split, f"{split}_dataset")
+        for _ in range(3):
+            end = np.zeros(24, np.uint8)
+            end[-1] = 1
+            ds.add_episode(Episode(obs=rng.integers(0, 255, (24, 16, 16, 3), dtype=np.uint8),
+                                   act=rng.integers(0, 3, 24).astype(np.int32),
+                                   rew=np.zeros(24, np.float32), end=end,
+                                   trunc=np.zeros(24, np.uint8)))
+        ds.save_to_default_path()
+    overrides = [o for o in TRAINER_TINY if not o.startswith(("collection.", "training."))] + [
+        "agent=csgo", "agent.upsampler.upsampling_factor=2",
+        "agent.upsampler.inner_model.cond_channels=16", "agent.upsampler.inner_model.depths=[1]",
+        "agent.upsampler.inner_model.channels=[8]", "agent.upsampler.inner_model.attn_depths=[0]",
+        "upsampler.training.steps_first_epoch=3", "upsampler.training.steps_per_epoch=2",
+        "upsampler.training.batch_size=2", "upsampler.training.lr_warmup_steps=2",
+        "training.wm_only=True", "training.num_final_epochs=2",
+        f"static_dataset.path={tmp_path / 'static'}"]
+    run_dir = tmp_path / "run"
+    run_dir.mkdir()
+    trainer = Trainer(load_config(overrides), run_dir, run_dir=run_dir)
+    trainer.run()
+    assert trainer.epoch == 2 and trainer.train_states["upsampler"].step == 5
+    lines = (run_dir / "metrics.jsonl").read_text()
+    assert "upsampler/test/loss_denoising" in lines and "rew_end_model/" not in lines
+    saved = torch.load(run_dir / "checkpoints" / "state.pt", weights_only=False)
+    resumed = Trainer(load_config(overrides + ["common.resume=True"]), run_dir, run_dir=run_dir)
+    state = resumed.state_dict()
+    for name, ts in saved["train_states"].items():
+        for k, v in ts["net"].items():
+            assert torch.equal(v, state["train_states"][name]["net"][k]), (name, k)

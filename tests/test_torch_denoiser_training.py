@@ -35,7 +35,8 @@ from diamond_tpu_torch import config as tc
 from diamond_tpu_torch.data.episode import obs_to_float
 from diamond_tpu_torch.data.segment import DeviceBatch
 from diamond_tpu_torch.interop.jax_vars import load_variables, variables_to_state_dict
-from diamond_tpu_torch.models import Denoiser, DenoiserDraws, DiffusionSampler
+from diamond_tpu_torch.models import (Denoiser, DenoiserDraws, DiffusionSampler, downsample_avg,
+                                      quantize_to_uint8_grid)
 from diamond_tpu_torch.models.agent import configure_opt, decay_mask
 from diamond_tpu_torch.ops import quant
 from diamond_tpu_torch.training import (TrainState, make_denoiser_eval_step,
@@ -234,8 +235,14 @@ def test_eval_step_is_the_loss_without_a_graph(fresh):
     loss, _ = p.loss(obs_to_float(t(obs_u8)), t(act), t(mask), SIGMA, draws=draws)
     assert not m["loss_denoising"].requires_grad
     assert m["loss_denoising"].item() == loss.item()
-    with pytest.raises(ValueError, match="two-stage"):
-        make_denoiser_train_step(p, configure_opt(LR, 0.0, 1e-8), SIGMA, downsample_factor=2)
+    # the two-stage world model's step: the loss of the frames' grid-snapped area
+    # downsample, made in the step (tests/test_torch_two_stage.py holds it against JAX)
+    low = quantize_to_uint8_grid(downsample_avg(obs_to_float(t(obs_u8)), 2))
+    draws_low = DenoiserDraws(draws.sigma, draws.offset[..., :C],
+                              draws.noise[:, :, ::2, ::2].contiguous())
+    m = make_denoiser_eval_step(p, SIGMA, downsample_factor=2)(batch, draws=draws_low)
+    loss, _ = p.loss(low, t(act), t(mask), SIGMA, draws=draws_low)
+    assert m["loss_denoising"].item() == loss.item()
 
 
 def test_generator_draws_are_reproducible(fresh):

@@ -33,8 +33,12 @@ def test_default_config_equals_trainer_yaml():
     den = cfg.agent.denoiser
     assert (port.denoiser.sigma_data, port.denoiser.sigma_offset_noise) == \
         (den.sigma_data, den.sigma_offset_noise)
-    inner = {k: v for k, v in asdict(port.denoiser.inner_model).items() if k != "num_actions"}
+    # is_upsampler: the YAML leaves it to InnerModelConfig.from_cfg's default, False
+    inner = {k: v for k, v in asdict(port.denoiser.inner_model).items()
+             if k not in ("num_actions", "is_upsampler")}
     assert inner == {k: den.inner_model[k] for k in inner}
+    assert port.denoiser.inner_model.is_upsampler is den.inner_model.get("is_upsampler", False)
+    assert port.upsampler is None and cfg.agent.upsampler is None
     wm = tc.WorldModelEnvConfig()
     assert (wm.horizon, wm.num_batches_to_preload) == \
         (cfg.world_model_env.horizon, cfg.world_model_env.num_batches_to_preload)
