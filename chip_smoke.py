@@ -3,9 +3,9 @@
 agent on one NVIDIA GPU, bf16 and static int8 (the production default), the
 actor-critic train step in imagination on the int8 world model, the denoiser train
 step, the rew/end train step fed from the device episode store, the model-free
-actor-critic step, three epochs of the whole trainer, and the two-stage (csgo) world
-model (play at batch 1, its train steps, its wm_only trainer), through the port's
-hand-written CUDA kernels.
+actor-critic step, three epochs of the whole trainer, the two-stage (csgo) world
+model (play at batch 1, its train steps, its wm_only trainer) and the play app, through
+the port's hand-written CUDA kernels.
 
     python3 chip_smoke.py              # from the repo root, on a machine with a CUDA GPU
 
@@ -94,6 +94,18 @@ result line):
      downsampled in the step) with launches held to the module tree and no sync; the
      wm_only trainer on a static dataset of fake-env episodes (two epochs with
      evaluation, its snapshot in a fresh Agent, resume bit for bit, no sync in its steps);
+  6h. the play app (diamond_tpu_torch.play, headless: the card has no pygame) for the
+     default Atari agent and the csgo agent at their full widths on env=fake: a run dir
+     written for each (config/trainer.json and a snapshot of seeded random weights), the
+     app built through ``play.build_app`` as ``play --run-dir <run> --horizon 50 --int8``
+     (1,000 seed steps), then the PlayEnv driven directly: bf16 and int8, human
+     (scripted actions) and policy control, 3 warm-up then 60 frames x 3 of each in
+     turns, every chunk counted -> ``play_fps_batch1`` (best, median), ms, host-device
+     syncs and kernel launch calls per frame, device busy and idle share per frame of
+     five profiled frames; the horizon down and up, a cycle through the real envs;
+     ``play -r`` until two episodes are recorded and ``play -d`` browsing them; a few
+     policy-controlled f32 frames of the default agent card vs CPU (actions, rewards and
+     ends equal);
   7. each kernel against its plain PyTorch version at every shape and dtype its paths
      sent it (the backward kernels: those of the four train steps), and in f32
      (TF32 off), with device times, bounds and library yardsticks (the weight gradient
@@ -143,20 +155,28 @@ KERNELS = {
     "adagn_silu": ("diamond_tpu_torch/kernels/csrc/fused_norms.cu",
                    "diamond_tpu/ops/fused_norms.py:97",
                    ("bf16", "denoiser_step", "rew_end_step", "trainer", "ts_play_bf16",
-                    "ts_up_step", "ts_den_step", "ts_trainer")),
+                    "ts_up_step", "ts_den_step", "ts_trainer", "play_default_bf16",
+                    "play_csgo_bf16")),
     "groupnorm_silu": ("diamond_tpu_torch/kernels/csrc/fused_norms.cu",
                        "diamond_tpu/ops/fused_norms.py:65",
                        ("bf16", "denoiser_step", "rew_end_step", "mf_ac_step", "trainer",
-                        "ts_play_bf16", "ts_up_step", "ts_den_step", "ts_trainer")),
+                        "ts_play_bf16", "ts_up_step", "ts_den_step", "ts_trainer",
+                        "play_default_bf16", "play_default_int8", "play_csgo_bf16",
+                        "play_csgo_int8")),
     "conv3x3": ("diamond_tpu_torch/kernels/csrc/conv3x3.cu", "diamond_tpu/ops/conv3x3.py:33",
                 ("bf16", "denoiser_step", "rew_end_step", "mf_ac_step", "trainer",
-                 "ts_play_bf16", "ts_play_int8", "ts_up_step", "ts_den_step", "ts_trainer")),
+                 "ts_play_bf16", "ts_play_int8", "ts_up_step", "ts_den_step", "ts_trainer",
+                 "play_default_bf16", "play_default_int8", "play_csgo_bf16", "play_csgo_int8")),
     "adagn_silu_q8": ("diamond_tpu_torch/kernels/csrc/fused_q8.cu",
-                      "diamond_tpu/ops/fused_q8.py:55", ("int8", "trainer", "ts_play_int8")),
+                      "diamond_tpu/ops/fused_q8.py:55", ("int8", "trainer", "ts_play_int8",
+                                                         "play_default_int8", "play_csgo_int8")),
     "groupnorm_silu_q8": ("diamond_tpu_torch/kernels/csrc/fused_q8.cu",
-                          "diamond_tpu/ops/fused_q8.py:55", ("int8", "trainer", "ts_play_int8")),
+                          "diamond_tpu/ops/fused_q8.py:55", ("int8", "trainer", "ts_play_int8",
+                                                             "play_default_int8",
+                                                             "play_csgo_int8")),
     "conv3x3_int8": ("diamond_tpu_torch/kernels/csrc/conv3x3_q8.cu",
-                     "diamond_tpu/ops/quant.py:161", ("int8", "trainer", "ts_play_int8")),
+                     "diamond_tpu/ops/quant.py:161", ("int8", "trainer", "ts_play_int8",
+                                                      "play_default_int8", "play_csgo_int8")),
     # the backward of K2's custom_vjp (the XLA VJP of _gn_silu_ref on the TPU)
     "groupnorm_silu_bwd": ("diamond_tpu_torch/kernels/csrc/gn_bwd.cu",
                            "diamond_tpu/ops/fused_norms.py:155",
@@ -224,7 +244,9 @@ PER_RUN = {"bf16": "rollout", "int8": "rollout", "ac_step": "AC step",
            "mf_ac_step": "model-free AC step", "trainer": "trainer epoch",
            "ts_play_bf16": "two-stage play step", "ts_play_int8": "two-stage play step",
            "ts_up_step": "upsampler step", "ts_den_step": "two-stage denoiser step",
-           "ts_trainer": "two-stage trainer epoch"}
+           "ts_trainer": "two-stage trainer epoch", "play_default_bf16": "play frame",
+           "play_default_int8": "play frame", "play_csgo_bf16": "play frame",
+           "play_csgo_int8": "play frame"}
 # The H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and dense
 # operations/s by type; the norms' element-wise work runs on the CUDA cores in f32.
 HBM_BYTES_S = 3.35e12
@@ -765,8 +787,8 @@ def compare_kernels(shapes, launches, runs):
                            library_ms=t["library_ms"] if t["has_library"] else None,
                            shapes=len(shapes[p][name]))
                    for p, t in tots.items()}
-        for p in by_path:  # the two-stage paths' new shapes, each with its launches
-            if p.startswith("ts_"):
+        for p in by_path:  # the two-stage and play paths' shapes, each with its launches
+            if p.startswith(("ts_", "play_")):
                 by_path[p]["shape_launches"] = {str(sig): c for sig, c in shapes[p][name].items()}
         path, tot = paths[0], tots[paths[0]]
         entry = dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -2235,24 +2257,15 @@ def ts_nets(agent) -> list:
 
 
 def ts_calibrate(env, agent, provider, sites) -> list:
-    """bench_two_stage.py's calibration: eight ICs area-downsampled for the dynamics
-    denoiser and the rew/end model, their last frames upsampled for the upsampler."""
+    """bench_two_stage.py's calibration, as ``play --int8`` runs it (play.py
+    ``calibrate_int8``): eight ICs area-downsampled for the dynamics denoiser and the
+    rew/end model, their last frames upsampled for the upsampler."""
     import torch
-    from diamond_tpu_torch.data.episode import obs_to_float
-    from diamond_tpu_torch.envs.wm_env_stateful import to_low_res
-    from diamond_tpu_torch.models.denoiser import upsample_frame
-    from diamond_tpu_torch.ops import quant
+    from diamond_tpu_torch.play import calibrate_int8
 
-    obs_u8, act, _, _ = provider(8)
-    f = env.cascade.factor
-    obs_f = obs_to_float(to_low_res(torch.from_numpy(obs_u8).cuda(), f))
-    act = torch.from_numpy(act).cuda()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
-    env.engine.sampler.calibrate(obs_f, act, sites, generator=gen)
-    agent.rew_end_model.calibrate(obs_f[:, -2:-1], act[:, -2:-1], obs_f[:, -1:], sites)
-    env.cascade.up_sampler.calibrate(upsample_frame(obs_f[:, -1], f)[:, None], None, sites,
-                                     generator=gen)
-    return [quant.collection(n) for n in ts_nets(agent)]
+    colls = calibrate_int8(env.engine, agent, provider, sites, generator=gen)
+    return [colls[n] for n in ("denoiser", "rew_end_model", "upsampler")]
 
 
 def ts_counted(label, fn, totals) -> None:
@@ -2678,6 +2691,308 @@ def two_stage_phase(smi):
     return shapes, launches, runs, result
 
 
+# ---------------------------------------------------------------------------
+# The play app (python -m diamond_tpu_torch.play), driven headless
+
+PLAY_AGENTS = {"default": ["agent=default", "env=fake"], "csgo": ["agent=csgo", "env=fake"]}
+PLAY_PRECISIONS = ("bf16", "int8")
+PLAY_CONTROLS = ("human", "policy")
+PLAY_PATHS = tuple(f"play_{a}_{p}" for a in PLAY_AGENTS for p in PLAY_PRECISIONS)
+# each agent x precision x control: PLAY_WARMUP frames, then PLAY_FRAMES x PLAY_REPS in
+# turns with the others (bench_two_stage.py's 3 warm-up and 60 timed steps, best of 3)
+PLAY_WARMUP, PLAY_FRAMES, PLAY_REPS = 3, 60, 3
+PLAY_SYNC_FRAMES = 15
+PLAY_PROFILE_FRAMES = 5  # profiled together: a frame's launches and device time depend on
+                         # whether it refills (an end draws new ICs through the provider)
+PLAY_HORIZON = 50        # play.py's default --horizon
+PLAY_REC_HORIZON = 8
+PLAY_REC_EPISODES = 2
+PLAY_REF_FRAMES = 3
+
+
+def play_run_dir(root: Path, overrides, seed: int) -> Path:
+    """A run dir as ``python -m diamond_tpu_torch.main`` leaves it: the resolved
+    ``config/trainer.json`` and an agent snapshot (checkpoint.py) of seeded random weights
+    at the config's full widths, every zero-init weight perturbed."""
+    import copy
+
+    import torch
+    from diamond_tpu_torch.config import load_config, save_config
+    from diamond_tpu_torch.envs.fake_env import FakeEnv
+    from diamond_tpu_torch.models import Agent
+
+    cfg = load_config(overrides + [f"common.seed={seed}"])
+    save_config(cfg, root / "config" / "trainer.json")
+    acfg = copy.deepcopy(cfg.agent)
+    acfg.num_actions = FakeEnv.num_actions
+    acfg.__post_init__()
+    gen = torch.Generator().manual_seed(seed)
+    agent = Agent(acfg, torch.float32, device="cpu", generator=gen)
+    for net in agent.nets.values():
+        perturb_zero_leaves(net, gen)
+    (root / "checkpoints" / "agent_versions").mkdir(parents=True)
+    agent.save(root / "checkpoints" / "agent_versions" / "agent_epoch_00001.npz")
+    return root
+
+
+def play_frames(app, n: int, human: bool, seen: list):
+    """``n`` frames of ``app`` (a PlayEnv) in human control (scripted actions) or policy
+    control, the frames shown kept in ``seen``."""
+    def run():
+        app.human = human
+        for i in range(n):
+            seen.append(app.step(i % app.agent.cfg.num_actions)[0])
+    return run
+
+
+def play_recording(run: Path, smi: str) -> dict:
+    """``play -r --horizon PLAY_REC_HORIZON`` in human control until PLAY_REC_EPISODES
+    episodes are recorded into ``dataset/rec_world_model_H``; the recording loaded with
+    the port's Dataset, and ``play -d`` (DatasetEnv) stepped through those episodes,
+    frame for frame the recorded ones."""
+    import numpy as np
+    from diamond_tpu_torch.data.dataset import Dataset
+    from diamond_tpu_torch.play import build_app, parse_args
+
+    t0 = time.perf_counter()
+    app = build_app(parse_args(["--run-dir", str(run), "-r", "--horizon", str(PLAY_REC_HORIZON),
+                                "-n", "100"]), device="cuda")
+    app.reset()
+    frames = episodes = 0
+    while episodes < PLAY_REC_EPISODES and frames < PLAY_REC_HORIZON * PLAY_REC_EPISODES:
+        _, _, end, trunc, _ = app.step(frames % app.agent.cfg.num_actions)
+        frames += 1
+        episodes += end or trunc
+    ds_dir = run / "dataset" / "rec_world_model_H"
+    ds = Dataset(ds_dir, "rec_world_model_H")
+    ds.load_from_default_path()
+    check(ds.num_episodes >= PLAY_REC_EPISODES, f"play -r wrote {ds.num_episodes} episodes "
+          f"in {frames} frames, not {PLAY_REC_EPISODES}")
+    browser = build_app(parse_args(["--run-dir", str(run), "-d"]))
+    check([d.name for d in browser.datasets] == ["rec_world_model_H"],
+          f"play -d browses {[d.name for d in browser.datasets]}")
+    obs, _ = browser.reset()
+    for e in range(PLAY_REC_EPISODES):
+        ep = ds.load_episode(e)
+        got = [obs] + [browser.step(0)[0] for _ in range(len(ep) - 1)]
+        check(all(np.array_equal(a, b) for a, b in zip(got, ep.obs)),
+              f"play -d: episode {e}'s frames differ from the recording")
+        browser.next_episode()
+        obs, _ = browser.reset()
+    lengths = [int(x) for x in ds.lengths]
+    log(f"[play] recording: play -r --horizon {PLAY_REC_HORIZON} wrote {ds.num_episodes} "
+        f"episodes ({lengths} frames) to dataset/rec_world_model_H in {frames} frames; play -d "
+        f"stepped {PLAY_REC_EPISODES} of them frame for frame ({time.perf_counter() - t0:.1f} s, "
+        f"the build included) on {smi}")
+    return dict(episodes=ds.num_episodes, lengths=lengths, frames=frames)
+
+
+def play_reference(app, cfg) -> dict:
+    """PLAY_REF_FRAMES policy-controlled frames of the play app's agent in f32 on the card
+    (kernels, TF32 off) against the CPU (plain versions): the same weights, the same ICs
+    (from the app's own seed collection), the same injected draws (the policy's Gumbel
+    noise, the sampler's latent, the reward and end Gumbels), each frame from the CPU's
+    state (world model, frame, carry). Actions, rewards, ends and truncations equal; at
+    most STEP_FAR_SHARE of a frame's values more than 2 levels apart."""
+    import copy
+
+    import numpy as np
+    import torch
+    from diamond_tpu_torch.envs.wm_env_stateful import StepDraws, WorldModelEnv
+    from diamond_tpu_torch.envs.world_model_env import ImaginationEngine, ImagState, gumbel
+    from diamond_tpu_torch.game.play_env import NamedEnv, PlayEnv
+    from diamond_tpu_torch.models import Agent
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    acfg = app.agent.cfg
+    ics = app.envs[0].env._ic_provider(4)
+    size, na = cfg.env.train.size, acfg.num_actions
+    g = torch.Generator().manual_seed(SEED + 30)
+    draws = [(gumbel((1, na), g, "cpu"),
+              StepDraws(torch.randn((1, size, size, 3), generator=g), gumbel((1, 3), g, "cpu"),
+                        gumbel((1, 2), g, "cpu")))
+             for _ in range(PLAY_REF_FRAMES)]
+    pes = []
+    for dev in ("cuda", "cpu"):
+        a = Agent(acfg, torch.float32, device=dev)
+        for name, net in a.nets.items():
+            net.load_state_dict(app.agent.nets[name].state_dict())
+        eng = ImaginationEngine(a.denoiser, a.rew_end_model, a.actor_critic,
+                                copy.deepcopy(app.envs[0].env.engine.cfg))
+        wm = WorldModelEnv(eng, lambda n: tuple(x[:n] for x in ics), 1)
+        pe = PlayEnv(a, [NamedEnv("world_model", wm)], cfg.env.keymap, 15)
+        pe.reset()
+        pe.human = False
+        pes.append(pe)
+    card, cpu = pes
+    far_max, levels, logit_diff = 0.0, 0, 0.0
+    for i, (g_pol, dr) in enumerate(draws):
+        card.env._st = ImagState(**{k: getattr(cpu.env._st, k).cuda()
+                                    for k in cpu.env._st.__dataclass_fields__})
+        card._obs, card._carry = cpu._obs.copy(), tuple(t.cuda() for t in cpu._carry)
+        acts = []
+        for pe in pes:
+            dev = pe.device
+            a, out = pe.policy_step(pe._obs, pe._carry, g_pol.to(dev))
+            acts.append((int(a.item()), out.logits_act.cpu()))
+            pe.env.draw = lambda dr=dr, dev=dev: StepDraws(*(x.to(dev) for x in dr[:3]))
+        check(acts[0][0] == acts[1][0], f"play reference frame {i}: actions differ card vs CPU")
+        logit_diff = max(logit_diff, (acts[0][1] - acts[1][1]).abs().max().item())
+        outs = [pe.step(0, gumbel_noise=g_pol.to(pe.device)) for pe in pes]
+        for k, what in ((1, "rewards"), (2, "ends"), (3, "truncations")):
+            check(outs[0][k] == outs[1][k], f"play reference frame {i}: {what} differ card vs CPU")
+        d = np.abs(outs[0][0].astype(int) - outs[1][0].astype(int))
+        levels, far_max = max(levels, int(d.max())), max(far_max, float((d > 2).mean()))
+    check(far_max <= STEP_FAR_SHARE, f"play reference: {far_max:.3%} of a frame's values more "
+          f"than 2 levels apart card vs CPU (at most {STEP_FAR_SHARE:.0%})")
+    log(f"[reference] play, {PLAY_REF_FRAMES} policy-controlled frames of the default agent at "
+        f"B=1 f32 card vs CPU plain, each from the CPU's state, the same draws: actions, "
+        f"rewards, ends and truncations equal, logits within {logit_diff:.3g}, frames up to "
+        f"{levels} level(s) apart, {far_max:.3%} of values more than 2")
+    return dict(frames=PLAY_REF_FRAMES, max_logit_diff=logit_diff, frame_max_levels=levels,
+                far_share=far_max)
+
+
+def play_agent(name, overrides, root: Path, smi: str):
+    """One agent's play app, built as ``python -m diamond_tpu_torch.play --run-dir <run>
+    --horizon 50 --int8`` would (the default -n 1000 seed collection on env=fake, the
+    world model calibrated; its bf16 path with the calibrations dropped), then driven
+    directly: PLAY_WARMUP frames of each precision x control, PLAY_FRAMES x PLAY_REPS of
+    each in turns (every chunk counted), the syncs of PLAY_SYNC_FRAMES frames and
+    PLAY_PROFILE_FRAMES frames profiled of each, the horizon down and up, a cycle through
+    the real envs. Returns (signatures, launches, frames counted per path, result, app,
+    cfg, run dir)."""
+    import numpy as np
+    import torch
+    from diamond_tpu_torch.ops import quant
+    from diamond_tpu_torch.play import build_app, parse_args, run_config
+
+    run = play_run_dir(root / name, overrides, SEED + 40)
+    cfg = run_config(run)
+    t0 = time.perf_counter()
+    app = build_app(parse_args(["--run-dir", str(run), "--horizon", str(PLAY_HORIZON),
+                                "--int8"]), device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    agent = app.agent
+    nets = [agent.denoiser.inner_model, agent.rew_end_model.net] + (
+        [agent.upsampler.inner_model] if agent.upsampler is not None else [])
+    colls = [quant.collection(n) for n in nets]
+    check(all(colls), f"play --int8 ({name}) left a model uncalibrated")
+    log(f"[play] {name}: built as `play --run-dir <run> --horizon {PLAY_HORIZON} --int8` in "
+        f"{build_s:.1f} s (1,000 seed steps of env=fake under the policy, calibration "
+        f"{cfg.tpu.int8_sites!r}: " + ", ".join(f"{num_sites(c)} sites" for c in colls)
+        + f"), {cfg.tpu.compute_dtype}, {agent.cfg.num_actions} actions")
+    app.reset()
+    seen, totals = [], {}
+    times = {(p, c): [] for p in PLAY_PRECISIONS for c in PLAY_CONTROLS}
+    label = lambda p: f"play_{name}_{p}"  # noqa: E731
+    for p in PLAY_PRECISIONS:
+        for c in PLAY_CONTROLS:
+            set_int8(nets, colls, p == "int8")
+            ts_counted(label(p), play_frames(app, PLAY_WARMUP, c == "human", seen), totals)
+    for _ in range(PLAY_REPS):
+        for p in PLAY_PRECISIONS:
+            for c in PLAY_CONTROLS:
+                set_int8(nets, colls, p == "int8")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ts_counted(label(p), play_frames(app, PLAY_FRAMES, c == "human", seen), totals)
+                times[p, c].append(time.perf_counter() - t0)
+    size = cfg.env.train.size
+    check(all(o.dtype == np.uint8 and o.shape == (size, size, 3) for o in seen),
+          f"play ({name}): frames not uint8 ({size}, {size}, 3)")
+    frames = 2 * (PLAY_WARMUP + PLAY_FRAMES * PLAY_REPS)
+    result = dict(build_s=build_s, frames_per_path=frames, seed_steps=1000)
+    launches, shapes = {}, {}
+    for p in PLAY_PRECISIONS:
+        launches[label(p)], shapes[label(p)] = totals[label(p)]
+        log(f"[launches] {label(p)}, over {frames} frames: {launches[label(p)]}")
+        for k, (_, _, paths) in KERNELS.items():
+            if label(p) in paths:
+                check(launches[label(p)][k] > 0, f"{k} was not launched on {label(p)}")
+    check(all(launches[label("bf16")][k] == 0 for k in ("adagn_silu_q8", "groupnorm_silu_q8",
+                                                        "conv3x3_int8")),
+          f"an int8 kernel ran on {label('bf16')}")
+    for p in PLAY_PRECISIONS:
+        set_int8(nets, colls, p == "int8")
+        for c in PLAY_CONTROLS:
+            fps = sorted(PLAY_FRAMES / s for s in times[p, c])
+            syncs = sync_points(play_frames(app, PLAY_SYNC_FRAMES, c == "human", seen))
+            per_frame = sum(syncs.values()) / PLAY_SYNC_FRAMES
+            prof = profile_run(play_frames(app, PLAY_PROFILE_FRAMES, c == "human", seen),
+                               f"{label(p)}_{c}", f"{PLAY_PROFILE_FRAMES} play frames")
+            ms = 1e3 / fps[len(fps) // 2]
+            calls, busy = (prof[k] / PLAY_PROFILE_FRAMES for k in ("launches", "busy_ms"))
+            r = dict(fps_best=fps[-1], fps_median=fps[len(fps) // 2], fps_runs=fps,
+                     ms_per_frame=ms, syncs_per_frame=per_frame, sync_points=syncs,
+                     launch_calls_per_frame=calls, busy_ms=busy, idle_share=1 - busy / ms,
+                     profile=prof)
+            result[f"{p}_{c}"] = r
+            log(f"[play] play_fps_batch1 {name} {p} {c}: {r['fps_best']:.1f} frames/s best, "
+                f"{r['fps_median']:.1f} median ({PLAY_REPS} x {PLAY_FRAMES} frames in turns, "
+                f"runs {[round(v, 1) for v in fps]}), {ms:.1f} ms per frame; "
+                f"{per_frame:.3f} host-device syncs per frame over {PLAY_SYNC_FRAMES} {syncs}; "
+                f"{calls:.0f} kernel launch calls and {busy:.2f} ms device busy a frame over "
+                f"{PLAY_PROFILE_FRAMES} profiled frames, idle {100 * r['idle_share']:.1f} % of "
+                f"the median frame; on {smi}")
+    set_int8(nets, colls, True)  # the app as built, for the checks below
+    wm = app.envs[0].env
+    app.change_horizon(5 - PLAY_HORIZON)
+    check(wm.horizon == 5 and wm.engine.cfg.horizon == 5, "play: the horizon did not go down")
+    n, lengths = 0, []
+    app.reset()
+    app.human = True
+    for i in range(12):
+        _, _, end, trunc, _ = app.step(i % agent.cfg.num_actions)
+        n += 1
+        if end or trunc:
+            lengths.append(n)
+            n = 0
+    check(lengths and max(lengths) <= 5, f"play: episodes of {lengths} frames at horizon 5")
+    app.change_horizon(PLAY_HORIZON - 5)
+    check(wm.horizon == PLAY_HORIZON, "play: the horizon did not go back up")
+    cycled = []
+    for _ in app.envs:
+        app.cycle_env(1)
+        cycled.append(app.env_name)
+        for c in PLAY_CONTROLS:
+            play_frames(app, 3, c == "human", seen)()
+    check(cycled == ["test", "train", "world_model"], f"play: cycled through {cycled}")
+    log(f"[play] {name}: horizon 50 -> 5 (episodes of {lengths} frames) -> 50; cycled "
+        f"through {cycled}, 3 frames of each control in each")
+    result.update(horizon_5_lengths=lengths, cycled=cycled)
+    set_int8(nets, colls, False)
+    return shapes, launches, {label(p): frames for p in PLAY_PRECISIONS}, result, app, cfg, run
+
+
+def play_phase(smi):
+    """The [play] phase: the play app of the default (Atari) agent and of the two-stage
+    csgo agent at their full widths on env=fake, bf16 and int8, human and policy control
+    (``play_agent``); a recording and its browsing (``play_recording``); the card-vs-CPU
+    reference of the default agent's policy-controlled frames (``play_reference``).
+    Returns (signatures per path, launches per path, frames per path, result)."""
+    import tempfile
+
+    tmp = tempfile.TemporaryDirectory(prefix="diamond_play_")
+    t_phase = time.perf_counter()
+    shapes, launches, runs, result = {}, {}, {}, {}
+    for name, overrides in PLAY_AGENTS.items():
+        s, lch, r, result[name], app, cfg, run = play_agent(name, overrides, Path(tmp.name), smi)
+        shapes.update(s)
+        launches.update(lch)
+        runs.update(r)
+        result[name]["recording"] = play_recording(run, smi)
+        if name == "default":
+            result["reference"] = play_reference(app, cfg)
+        del app
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"[play] phase {result['phase_s']:.1f} s")
+    tmp.cleanup()
+    return shapes, launches, runs, result
+
+
 def num_sites(coll: dict) -> int:
     return sum(num_sites(v) if isinstance(v, dict) else k == "act_scale" for k, v in coll.items())
 
@@ -2801,6 +3116,8 @@ def main() -> int:
     shapes["trainer"], results["trainer"] = trainer_phase(smi)
     # the two-stage (csgo) world model: play, its train steps and the wm_only trainer
     ts_shapes, ts_launches, ts_runs, results["two_stage"] = two_stage_phase(smi)
+    # the play app, both agents, headless
+    play_shapes, play_launches, play_runs, results["play"] = play_phase(smi)
 
     paths = ("bf16", "int8", "ac_step", "denoiser_step", "rew_end_step", "mf_ac_step",
              "trainer")
@@ -2808,9 +3125,10 @@ def main() -> int:
     runs = {p: 1 + TIMED_ROLLOUTS if p in ("bf16", "int8")
             else results[p]["epochs"] if p == "trainer" else results[p]["steps"]
             for p in paths}
-    shapes.update(ts_shapes)
-    launches.update(ts_launches)
-    runs.update(ts_runs)
+    for more in ((ts_shapes, ts_launches, ts_runs), (play_shapes, play_launches, play_runs)):
+        shapes.update(more[0])
+        launches.update(more[1])
+        runs.update(more[2])
     rows, details = compare_kernels(shapes, launches, runs)
     for r in rows:
         log(f"[kernel] {r['name']}: {r['launches']} launches on the {r['path']} path, "

@@ -7,7 +7,8 @@ and the initial conditions (ICs). Frames cross to the host as uint8 numpy arrays
 
   * rolling buffers of the last n_cond frames and actions; reward and end sampled from
     the predicted logits;
-  * horizon truncation;
+  * horizon truncation, at ``horizon`` steps (the engine's ``cfg.horizon``: setting the
+    env's horizon, as the play app's keys do, moves the next truncations);
   * on death: refill from the IC provider (real segments with the rew/end LSTM burned in),
     reporting ``final_observation`` and ``burnin_obs``;
   * ``denoising_trajectory`` in info on request: the sampler's latents, rerun from the
@@ -75,7 +76,6 @@ class WorldModelEnv:
                  upsampler: Optional[Any] = None) -> None:
         self.engine = engine
         self.num_envs = num_envs
-        self.horizon = engine.cfg.horizon
         self.device = next(engine.denoiser.inner_model.parameters()).device
         self._ic_provider = ic_provider
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -91,6 +91,14 @@ class WorldModelEnv:
         self._display_obs: Optional[np.ndarray] = None  # (B, H, W, C) full-res, two-stage
         self._act_host = torch.empty(num_envs, dtype=torch.int32,
                                      pin_memory=self.device.type == "cuda")
+
+    @property
+    def horizon(self) -> int:
+        return self.engine.cfg.horizon
+
+    @horizon.setter
+    def horizon(self, value: int) -> None:
+        self.engine.cfg.horizon = int(value)
 
     @property
     def num_actions(self) -> int:

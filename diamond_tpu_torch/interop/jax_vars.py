@@ -9,9 +9,9 @@ buffers (ops/quant.py ``install``) and comes back out of them, ``w_q`` as int8 a
 scales as f32. Trees here are nested dicts of numpy arrays (``jax.tree_util.tree_map(
 np.asarray, variables)`` on the JAX side); this module imports no jax.
 
-Reference-format torch checkpoints reach the port through the JAX package's numpy-only
-converter: ``diamond_tpu.interop.torch_ckpt.convert_reference_state_dict`` gives these
-trees, and ``variables_to_state_dict`` finishes the trip.
+Published DIAMOND checkpoints reach the port through its own numpy-only converter:
+``interop/reference_ckpt.py`` ``convert_reference_state_dict`` gives these trees, and
+``variables_to_state_dict`` (or ``Agent.load_state_dict``) finishes the trip.
 """
 
 from __future__ import annotations

@@ -1126,3 +1126,146 @@ def test_two_stage_trainer_runs_on_the_card_and_resumes(tmp_path):
     for name, ts in saved["train_states"].items():
         for k, v in ts["net"].items():
             assert torch.equal(v, state["train_states"][name]["net"][k]), (name, k)
+
+
+# ---------------------------------------------------------------------------
+# The play app at batch 1: the default Atari agent's shapes, the actor-critic, the app
+
+# (B, H, Cin, Cout, stride) of the default agent's 3x3 convs at B = 1: the denoiser's
+# conv_in (Cin 15: four conditioning frames and the noisy one), its levels at 64 channels
+# and its conv_out; the rew/end encoder's conv_in (Cin 6) and levels at 32 channels; the
+# actor-critic's conv_in (Cin 3) and its SmallResBlocks' convs
+PLAY_CONVS = ([(1, 64, 15, 64, 1), (1, 64, 64, 3, 1), (1, 64, 6, 32, 1), (1, 64, 3, 32, 1),
+               (1, 16, 32, 64, 1)]
+              + [(1, h, 64, 64, s) for h in (64, 32, 16, 8) for s in (1, 2) if h > 8 or s == 1]
+              + [(1, h, 32, 32, s) for h in (64, 32, 16, 8) for s in (1, 2) if h > 8 or s == 1])
+PLAY_NORMS = [(h, c) for h in (64, 32, 16, 8) for c in (32, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_play_shapes_match_plain_versions(dtype):
+    """The kernels at the play app's batch-1 shapes against their plain versions: K3 at
+    every 3x3 conv of the default agent (the actor-critic's Cin 3 and 32 -> 64 among
+    them); K1 and K2 (the actor-critic's SmallResBlock norms) at 64/32/16/8 with 32 and 64
+    channels; K4's static epilogue on eight inputs a shape, within one code and only where
+    the plain value lies at a rounding boundary; K5 exactly. The tolerances of
+    test_cuda_kernels_match_plain_versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    tol = 1e-3 if dt == torch.float32 else 1 / 64
+    g = torch.Generator(device="cuda").manual_seed(41)
+    for b, h, cin, cout, s in PLAY_CONVS:
+        x = torch.randn(b, h, h, cin, device="cuda", generator=g).to(dt)
+        k = (torch.randn(3, 3, cin, cout, device="cuda", generator=g) / (9 * cin) ** .5).to(dt)
+        bb = torch.randn(cout, device="cuda", generator=g)
+        _bwd_close(conv3x3(x, k, bb, s), conv3x3_plain(x, k, bb, s), tol)
+    for h, c in PLAY_NORMS:
+        gr = max(1, c // 32)
+        x, ss, sc, bi = _norm_inputs(1, h, c, dt, g, dt)
+        _bwd_close(adagn_silu(x, ss, gr), adagn_silu_plain(x, ss, gr),
+                   1e-4 if dt == torch.float32 else 1 / 64)
+        _bwd_close(groupnorm_silu(x, sc, bi, gr), groupnorm_silu_plain(x, sc, bi, gr),
+                   1e-4 if dt == torch.float32 else 1 / 64)
+        for i in range(8):
+            if i:
+                x, ss = _norm_inputs(1, h, c, dt, g, dt)[:2]
+            am = adagn_silu_plain(x, ss, gr).float().abs().amax(dim=(0, 1, 2)) * 0.95
+            q, ref = adagn_silu_q8(x, ss, gr, am), adagn_silu_q8_plain(x, ss, gr, am)
+            torch.cuda.synchronize()
+            _codes_at_boundary(static_code_flips(q, ref, adagn_silu_plain, x, ss, gr,
+                                                 act_max=am), q.numel())
+        wq = torch.randint(-127, 128, (3, 3, c, c), generator=g, device="cuda",
+                           dtype=torch.int8)
+        ws = torch.rand(c, generator=g, device="cuda") * 1e-3 + 1e-4
+        args = (q, wq, ws, None, 0.1 * torch.randn(c, device="cuda", generator=g), 1, dt)
+        torch.testing.assert_close(conv3x3_int8(*args), conv3x3_int8_plain(*args), rtol=0,
+                                   atol=0)
+
+
+@pytest.mark.cuda
+def test_actor_critic_at_batch_1_bf16_matches_the_cpu():
+    """The default agent's actor-critic ([32, 32, 64, 64], LSTM 512, 64x64 frames) at
+    B = 1 in bf16 on the card (K3 at Cin 3, K2 in the SmallResBlocks) against the same
+    weights on the CPU (plain versions, bf16): logits and value within 1/32 of max(1,
+    max |CPU|) (bf16 rounded after each layer on both sides, in other orders), the carry
+    within the same; the kernels launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diamond_tpu_torch import config as tc
+    from diamond_tpu_torch import ops
+    from diamond_tpu_torch.models import ActorCritic
+
+    cfg = tc.ActorCriticConfig(num_actions=4)
+    gen = torch.Generator().manual_seed(7)
+    obs = torch.rand(1, 64, 64, 3, generator=gen) * 2 - 1
+    carry = tuple(0.1 * torch.randn(1, 512, generator=gen) for _ in range(2))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        ac = ActorCritic(cfg, torch.bfloat16)
+        torch.manual_seed(3)
+        with torch.no_grad():
+            for p in ac.net.parameters():  # every weight non-zero, the heads too
+                p.copy_(torch.randn(p.shape) / max(1, p[..., 0].numel()) ** 0.5)
+        ac.net.to(dev)
+        before = (ops.conv3x3.launches, ops.groupnorm_silu.launches)
+        with torch.no_grad():
+            out = ac.head(ac.encode(obs.to(dev)), tuple(c.to(dev) for c in carry))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert ops.conv3x3.launches > before[0] and ops.groupnorm_silu.launches > before[1]
+        outs.append([out.logits_act.float().cpu(), out.val.float().cpu(),
+                     *(c.float().cpu() for c in out.carry)])
+    for a, b in zip(*outs):
+        assert (a - b).abs().max().item() <= max(1.0, b.abs().max().item()) / 32
+
+
+@pytest.mark.cuda
+def test_play_app_builds_and_plays_on_the_card(tmp_path):
+    """python -m diamond_tpu_torch.play's builder on the card from a tiny run dir
+    (config/trainer.json, an agent snapshot): --int8 --record, frames in both controls,
+    the env cycle, then --dataset-mode over the recording."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import copy
+
+    import numpy as np
+
+    from diamond_tpu_torch import config as tc
+    from diamond_tpu_torch import ops
+    from diamond_tpu_torch.models import Agent
+    from diamond_tpu_torch.play import build_app, parse_args
+
+    cfg = tc.load_config(["env=fake", "env.train.size=16"] + [
+        f"agent.{m}.{k}" for m, k in (
+            ("denoiser.inner_model", "channels=[32,32]"), ("denoiser.inner_model", "depths=[1,1]"),
+            ("denoiser.inner_model", "attn_depths=[0,0]"),
+            ("denoiser.inner_model", "cond_channels=16"), ("rew_end_model", "lstm_dim=32"),
+            ("rew_end_model", "channels=[32,32]"), ("rew_end_model", "depths=[1,1]"),
+            ("rew_end_model", "attn_depths=[0,0]"), ("rew_end_model", "cond_channels=8"),
+            ("actor_critic", "lstm_dim=32"), ("actor_critic", "channels=[32,32]"),
+            ("actor_critic", "down=[1,1]"))])
+    tc.save_config(cfg, tmp_path / "config" / "trainer.json")
+    acfg = copy.deepcopy(cfg.agent)
+    acfg.num_actions = 3
+    acfg.__post_init__()
+    (tmp_path / "checkpoints" / "agent_versions").mkdir(parents=True)
+    Agent(acfg, torch.float32, device="cpu", generator=torch.Generator().manual_seed(0)).save(
+        tmp_path / "checkpoints" / "agent_versions" / "agent_epoch_00001.npz")
+    app = build_app(parse_args(["--run-dir", str(tmp_path), "-n", "40", "--horizon", "4",
+                                "--int8", "-r"]), device="cuda")
+    app.reset()
+    ops.conv3x3_int8.launches = ops.conv3x3.launches = 0
+    for i in range(16):
+        app.human = i < 8
+        obs, *_ = app.step(i % 3)
+        assert obs.shape == (16, 16, 3) and obs.dtype == np.uint8
+    assert ops.conv3x3_int8.launches > 0 and ops.conv3x3.launches > 0
+    for _ in app.envs:
+        app.cycle_env(1)
+        app.step(1)
+    browser = build_app(parse_args(["--run-dir", str(tmp_path), "-d"]))
+    assert browser.datasets and browser.reset()[0].shape == (16, 16, 3)
