@@ -4,8 +4,9 @@ agent on one NVIDIA GPU, bf16 and static int8 (the production default), the
 actor-critic train step in imagination on the int8 world model, the denoiser train
 step, the rew/end train step fed from the device episode store, the model-free
 actor-critic step, three epochs of the whole trainer, the two-stage (csgo) world
-model (play at batch 1, its train steps, its wm_only trainer) and the play app, through
-the port's hand-written CUDA kernels.
+model (play at batch 1, its train steps, its wm_only trainer), the play app and the
+train steps through data parallelism (an NCCL group, two gloo ranks), through the port's
+hand-written CUDA kernels.
 
     python3 chip_smoke.py              # from the repo root, on a machine with a CUDA GPU
 
@@ -106,6 +107,19 @@ result line):
      ``play -r`` until two episodes are recorded and ``play -d`` browsing them; a few
      policy-controlled f32 frames of the default agent card vs CPU (actions, rewards and
      ends equal);
+  6i. data parallelism (diamond_tpu_torch.parallel) on a fresh agent made as in 3: the
+     denoiser (six rows' first window padded), rew/end (store-fed), actor-critic (int8
+     world model calibrated through the group, from a whole pool) and model-free steps,
+     two updates each on the rank's rows of the global B = 32 batches and draws, (a)
+     through an NCCL process group at world size 1, counts set to 0 and read (every
+     kernel > 0): bit for bit against the path without a group (which repeats bit for
+     bit), the bytes each update reduces, the host-device syncs of a step (none but the
+     AC step's), the NCCL kernels' device time in a profiled step; (b) two spawned ranks
+     on the one card over gloo, 16 rows each: gradients, parameters and losses equal bit
+     for bit across the ranks, within tolerance of (a)'s path without a group (losses
+     1e-4, the AC step's 1e-3, the first update's gradients 1e-2 of their leaf's largest
+     |value|, parameters within Adam's bound), the pool pointer and the pool equal, each
+     rank's launches of every kernel > 0;
   7. each kernel against its plain PyTorch version at every shape and dtype its paths
      sent it (the backward kernels: those of the four train steps), and in f32
      (TF32 off), with device times, bounds and library yardsticks (the weight gradient
@@ -130,6 +144,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1651,13 +1666,14 @@ def rew_end_step_phase(agent, smi):
     weights move on the second only). The agent's rew/end model is checked untouched.
     Returns (signatures, result)."""
     import copy
-    from dataclasses import fields, replace
+    from dataclasses import replace
 
     import torch
     from diamond_tpu_torch.config import TrainerConfig
     from diamond_tpu_torch.data.batch_sampler import BatchSampler
     from diamond_tpu_torch.data.device_store import DeviceEpisodeStore, StoreBatchIterator
-    from diamond_tpu_torch.data.segment import DeviceBatch, collate_segments_to_batch
+    from diamond_tpu_torch.data.segment import (DENSE_FIELDS, DeviceBatch,
+                                                collate_segments_to_batch)
     from diamond_tpu_torch.training import (OptimizerSpec, TrainState, make_rew_end_eval_step,
                                             make_rew_end_train_step)
     from diamond_tpu_torch.utils import compute_classification_metrics
@@ -1683,9 +1699,9 @@ def rew_end_step_phase(agent, smi):
     ids = sampler.sample()
     dev, host = store.make_batch(ids), DeviceBatch.from_batch(
         collate_segments_to_batch([ds[s] for s in ids]), "cuda")
-    for f in fields(DeviceBatch):
-        check(torch.equal(getattr(dev, f.name), getattr(host, f.name)),
-              f"rew/end step: the store's {f.name} differs from the host collate")
+    for name in DENSE_FIELDS:
+        check(torch.equal(getattr(dev, name), getattr(host, name)),
+              f"rew/end step: the store's {name} differs from the host collate")
     beyond = sum(s.stop > ds.lengths[s.episode_id] for s in ids)
     log(f"[rew_end_step] the store's batch equals the host collate field for field "
         f"({beyond} of {len(ids)} windows reach past their episode's end, "
@@ -2993,6 +3009,430 @@ def play_phase(smi):
     return shapes, launches, runs, result
 
 
+# ---------------------------------------------------------------------------
+# [dp] data parallelism (parallel/): the four train steps through the data-parallel path
+
+DP_UPDATES = 2
+DP_RANKS = 2
+DP_PADDED_ROWS = 6       # rows of the denoiser batch (all in rank 0's half at two ranks)
+                         # whose first window's target frame is padding
+DP_LOSS_RTOL = {"denoiser": 1e-4, "rew_end": 1e-4, "ac": 1e-3, "model_free": 1e-4}
+# the first update's gradients, two ranks against one, as a share of their leaf's largest
+# |value|: the steps compute in bf16, so each rank's partial sums are rounded to bf16
+# (1/256 relative) before the ranks' sum, in another order than one rank's (the f32 CPU
+# tests hold the same path to 1e-5)
+DP_GRAD_SHARE = 1 / 16
+# the pool (its burn-in and policy features, bf16 compute) built by another process: the
+# kernels' bf16 tolerance against their plain versions
+DP_POOL_SHARE = 1 / 64
+DP_TIMEOUT_S = 400
+DP_LOSS_KEY = {"denoiser": "loss_denoising", "rew_end": "loss_total", "ac": "loss_total",
+               "model_free": "loss_total"}
+
+
+def dp_agent(cfg, device):
+    """A fresh agent made as main's (random weights from SEED, bf16 compute, the zero
+    leaves perturbed): alike in every process that makes it."""
+    import torch
+    from diamond_tpu_torch.config import RuntimeConfig
+    from diamond_tpu_torch.models import Agent
+
+    gen = torch.Generator().manual_seed(SEED)
+    agent = Agent(cfg, getattr(torch, RuntimeConfig().compute_dtype), device=device,
+                  generator=gen)
+    for net in agent.nets.values():
+        perturb_zero_leaves(net, gen)
+    return agent
+
+
+def dp_inputs(agent, device) -> dict:
+    """The global inputs of the four steps, made from seeds alike in every process: the
+    denoiser's B = 32 segments (the first window's target padded in DP_PADDED_ROWS rows),
+    a device store over the synthetic dataset and DP_UPDATES batches of rew/end segment
+    ids, a POOL_SIZE-entry IC pool (burned in, with policy features) and the imagination's
+    initial state at B = 32, the model-free step's recorded tensors."""
+    import numpy as np
+    import torch
+    from diamond_tpu_torch.config import TrainerConfig, WorldModelEnvConfig
+    from diamond_tpu_torch.data.batch_sampler import BatchSampler
+    from diamond_tpu_torch.data.device_store import DeviceEpisodeStore
+    from diamond_tpu_torch.envs.world_model_env import (ICPool, ImaginationEngine,
+                                                        encode_pool_feats, make_ic_preparer)
+
+    cfg, tcfg = agent.cfg, TrainerConfig()
+    n = cfg.denoiser.inner_model.num_steps_conditioning
+    den = denoiser_batch(cfg, BATCH, torch.Generator().manual_seed(SEED + 20), device)
+    den.mask_padding[:DP_PADDED_ROWS, :n + 1] = False
+    den.obs[:DP_PADDED_ROWS, :n + 1] = 0
+    ds = synthetic_dataset(cfg)
+    re = cfg.rew_end_model
+    store = DeviceEpisodeStore(ds.num_steps, (re.img_size, re.img_size, re.img_channels),
+                               max_episodes=ds.num_episodes, device=device)
+    store.sync(ds)
+    tr = tcfg.rew_end_model.training
+    sampler = BatchSampler(ds, 0, 1, BATCH, tr.seq_length, tr.sample_weights,
+                           can_sample_beyond_end=True, seed=SEED + 21)
+    rew_ids = [sampler.sample() for _ in range(DP_UPDATES)]
+    rng = np.random.default_rng(SEED + 22)
+    ch = cfg.denoiser.inner_model.img_channels
+    obs = torch.from_numpy(rng.integers(0, 256, (POOL_SIZE, n, re.img_size, re.img_size, ch),
+                                        dtype=np.uint8)).to(device)
+    act = torch.from_numpy(rng.integers(0, cfg.num_actions, (POOL_SIZE, n))
+                           .astype(np.int32)).to(device)
+    hx, cx = make_ic_preparer(agent.rew_end_model)(obs, act)
+    feats = torch.cat([encode_pool_feats(agent.actor_critic, obs[i:i + 512])
+                       for i in range(0, POOL_SIZE, 512)])
+    pool = ICPool(obs=obs, act=act, hx=hx, cx=cx,
+                  ptr=torch.zeros((), dtype=torch.long, device=device), feats=feats)
+    st, pool = ImaginationEngine(agent.denoiser, agent.rew_end_model, agent.actor_critic,
+                                 WorldModelEnvConfig()).initial_state(pool, BATCH)
+    rec = recorded_tensors(cfg, BATCH, tcfg.actor_critic.actor_critic_loss.backup_every,
+                           torch.Generator().manual_seed(SEED + 23), device)
+    return dict(den=den, store=store, rew_ids=rew_ids, pool=pool, st=st, rec=rec)
+
+
+def dp_digest(*tensors) -> str:
+    """A digest of the tensors' bytes."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def dp_steps(agent, inputs, dp, measure: bool = False) -> dict:
+    """The denoiser, rew/end (store-fed), actor-critic (int8 world model, calibrated on
+    the live buffers, from the pool) and model-free train steps through the data-parallel
+    path of ``dp`` (without a process group: the single-card path), DP_UPDATES updates
+    each, on deep copies of the agent's models (no int8 collection) with trainer.yaml's
+    optimizers, warmup 0; the rank's rows of every global batch and draw. Returns per
+    step the global losses, the norms, the first update's gradients and the parameters
+    after the updates (on the host), the bytes the last update reduced; for the AC step
+    the pool pointer and digests of the pool and the calibration. ``measure``: then one
+    more step of each under the sync debug mode and one profiled (NCCL kernels' device
+    time)."""
+    import copy
+    from dataclasses import replace
+
+    import torch
+    from diamond_tpu_torch.config import RuntimeConfig, TrainerConfig, WorldModelEnvConfig
+    from diamond_tpu_torch.data.episode import obs_to_float
+    from diamond_tpu_torch.envs.world_model_env import ImaginationEngine
+    from diamond_tpu_torch.ops import quant
+    from diamond_tpu_torch.parallel import (replicate_pool, shard_device_batch,
+                                            shard_imag_state)
+    from diamond_tpu_torch.training import (OptimizerSpec, TrainState, make_ac_train_step,
+                                            make_denoiser_train_step,
+                                            make_model_free_ac_train_step,
+                                            make_rew_end_train_step)
+
+    tcfg, dev = TrainerConfig(), inputs["den"].obs.device
+    out = {}
+
+    def train(name, model, net, section, make, run):
+        quant.strip(net)
+        spec = replace(OptimizerSpec.from_cfg(section.optimizer, section.training),
+                       lr_warmup_steps=0)
+        tx = spec.build(dp)
+        state = TrainState.create(net, tx)
+        grads, names = {}, {p: n for n, p in net.named_parameters()}
+
+        def keep(opt, args, kwargs):
+            if not grads:
+                grads.update({names[p]: p.grad.detach().cpu().clone()
+                              for g in opt.param_groups for p in g["params"]})
+
+        state.opt_state.register_step_pre_hook(keep)
+        step = make(model, tx)
+        losses, norms = [], []
+        for i in range(DP_UPDATES):
+            state, m = run(step, state, i)
+            loss = m[DP_LOSS_KEY[name]].detach().float().clone()
+            losses.append(dp.all_reduce_sum(loss).item())
+            norms.append(m["grad_norm_before_clip"].item())
+        params = {n: p.detach().cpu().clone() for n, p in net.named_parameters()}
+        out[name] = dict(losses=losses, norms=norms, grads=grads, lr=spec.lr, params=params,
+                         reduced_bytes=tx.reduced_bytes)
+        if measure:
+            torch.cuda.synchronize()
+            out[name]["syncs"] = sync_points(lambda: run(step, state, DP_UPDATES))
+            out[name]["nccl"] = nccl_device_time(lambda: run(step, state, DP_UPDATES + 1))
+
+    sigma = tcfg.denoiser.sigma_distribution
+    den = copy.deepcopy(agent.denoiser)
+    batch = shard_device_batch(inputs["den"], dp)
+    dgen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    train("denoiser", den, den.inner_model, tcfg.denoiser,
+          lambda m, tx: make_denoiser_train_step(m, tx, sigma),
+          lambda step, state, i: step(state, batch, generator=dgen))
+
+    rew = copy.deepcopy(agent.rew_end_model)
+    store, ids = inputs["store"], inputs["rew_ids"]
+    train("rew_end", rew, rew.net, tcfg.rew_end_model, make_rew_end_train_step,
+          lambda step, state, i: step(state, store.make_batch(ids[i % len(ids)], dp=dp)))
+
+    ac = copy.deepcopy(agent.actor_critic)
+    engine = ImaginationEngine(agent.denoiser, agent.rew_end_model, ac, WorldModelEnvConfig(),
+                               dp=dp)
+    sites = RuntimeConfig().int8_sites
+    st = shard_imag_state(inputs["st"], dp)
+    obs_f = obs_to_float(st.obs_buffer)
+    cgen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    x_init = dp.take(torch.randn((BATCH,) + tuple(obs_f.shape[2:]), generator=cgen, device=dev))
+    d_coll = engine.sampler.calibrate(obs_f, st.act_buffer, sites, x_init=x_init, dp=dp)
+    r_coll = agent.rew_end_model.calibrate(obs_f[:, -2:-1], st.act_buffer[:, -2:-1],
+                                           obs_f[:, -1:], sites, dp=dp)
+    imag = dict(st=st, pool=replicate_pool(inputs["pool"], dp))
+    rgen = torch.Generator(device=dev).manual_seed(SEED + 26)
+
+    def ac_run(step, state, i):
+        state, imag["st"], imag["pool"], m = step(state, imag["st"], imag["pool"],
+                                                   generator=rgen)
+        return state, m
+
+    train("ac", ac, ac.net, tcfg.actor_critic,
+          lambda m, tx: make_ac_train_step(engine, m, tx, tcfg.actor_critic.actor_critic_loss),
+          ac_run)
+    pool = inputs["pool"]
+    out["ac"].update(ptr=int(imag["pool"].ptr),
+                     pool_digest=dp_digest(pool.hx, pool.cx, pool.feats),
+                     pool_state={k: getattr(pool, k).detach().cpu()
+                                 for k in ("hx", "cx", "feats")},
+                     calibration_digest=dp_digest(*_leaves(d_coll), *_leaves(r_coll)))
+
+    mf = copy.deepcopy(agent.actor_critic)
+    rec = [dp.take(x) for x in inputs["rec"]]
+    train("model_free", mf, mf.net, tcfg.actor_critic,
+          lambda m, tx: make_model_free_ac_train_step(m, tx,
+                                                      tcfg.actor_critic.actor_critic_loss),
+          lambda step, state, i: step(state, *rec))
+    return out
+
+
+def _leaves(tree) -> list:
+    """The tensors of a nested dict, in key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def nccl_device_time(fn) -> dict:
+    """One ``fn()`` under torch.profiler: the NCCL kernels' device time and launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower()]
+    busy = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return dict(ms=sum(e.self_device_time_total for e in ev) / 1e3,
+                launches=sum(e.count for e in ev), kernels=sorted({e.key[:60] for e in ev}),
+                step_device_ms=sum(e.self_device_time_total for e in busy) / 1e3)
+
+
+def dp_rank(rank: int, world: int, port: int, cfg) -> None:
+    """One rank of [dp]'s two-rank run: the card set, a gloo process group joined, the
+    agent and inputs made as the parent's, the counts set to 0, the four steps through
+    the group's DataParallel, the counts read; the results written for the parent."""
+    import torch
+    import torch.distributed as dist
+    from diamond_tpu_torch import ops
+    from diamond_tpu_torch.parallel import DataParallel
+
+    torch.set_grad_enabled(False)
+    torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the host
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank)
+    try:
+        dp = DataParallel.from_process_group("cuda")
+        agent = dp_agent(cfg, "cuda")
+        inputs = dp_inputs(agent, "cuda")
+        torch.cuda.synchronize()
+        count_reset()
+        t0 = time.perf_counter()
+        res = dp_steps(agent, inputs, dp)
+        torch.cuda.synchronize()
+        res["seconds"] = time.perf_counter() - t0
+        res["launches"] = {name: getattr(ops, name).launches for name in KERNELS}
+        torch.save(res, OUT_DIR / f"dp_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_compare(got: dict, ref: dict, what: str, exact: bool) -> dict:
+    """``got`` against ``ref`` step by step: bit for bit (``exact``: the pool's digest
+    too), or the losses within DP_LOSS_RTOL, the first update's gradients within
+    DP_GRAD_SHARE of their leaf's largest |value|, the parameters within Adam's bound (2
+    lr an update) and the pool's burned-in state and features within DP_POOL_SHARE of
+    their largest |value| (two processes need not burn in bit for bit alike); the pool
+    pointer equal. Returns per step the largest differences."""
+    import torch
+
+    diffs = {}
+    for name in DP_LOSS_KEY:
+        r, g = ref[name], got[name]
+        if exact:
+            check(g["losses"] == r["losses"] and g["norms"] == r["norms"],
+                  f"{what} {name}: losses {g['losses']} / norms {g['norms']} differ from "
+                  f"{r['losses']} / {r['norms']}")
+            for key in ("grads", "params"):
+                bad = [n for n in r[key] if not torch.equal(g[key][n], r[key][n])]
+                check(not bad, f"{what} {name}: {len(bad)} {key} differ, e.g. {bad[:3]}")
+        else:
+            for a, b in zip(g["losses"], r["losses"]):
+                check(abs(a - b) <= DP_LOSS_RTOL[name] * abs(b),
+                      f"{what} {name}: loss {a} vs {b} (rtol {DP_LOSS_RTOL[name]})")
+            grads_close(g["grads"], r["grads"], DP_GRAD_SHARE, f"{what} {name}")
+        share = max((g["grads"][n] - r["grads"][n]).abs().max().item()
+                    / max(r["grads"][n].abs().max().item(), 1e-30) for n in r["grads"])
+        moved = max((g["params"][n] - r["params"][n]).abs().max().item() for n in r["params"])
+        check(moved <= 2 * r["lr"] * DP_UPDATES, f"{what} {name}: a parameter differs by "
+              f"{moved:.3g}, beyond Adam's bound {2 * r['lr'] * DP_UPDATES:.3g}")
+        diffs[name] = dict(loss_rel=max(abs(a - b) / abs(b) for a, b in zip(g["losses"],
+                                                                                r["losses"])),
+                           grad_share=share, param_abs=moved, param_in_lr=moved / r["lr"])
+    check(got["ac"]["ptr"] == ref["ac"]["ptr"],
+          f"{what}: pool pointer {got['ac']['ptr']} vs {ref['ac']['ptr']}")
+    if exact:
+        check(got["ac"]["pool_digest"] == ref["ac"]["pool_digest"], f"{what}: the IC pools "
+              "differ")
+    else:
+        a, b = got["ac"]["pool_state"], ref["ac"]["pool_state"]
+        diffs["pool"] = {k: (a[k].float() - b[k].float()).abs().max().item()
+                         / max(b[k].float().abs().max().item(), 1e-30) for k in b}
+        check(max(diffs["pool"].values()) <= DP_POOL_SHARE,
+              f"{what}: the IC pools differ by {diffs['pool']} of their largest |value|")
+        diffs["pool_bitwise"] = got["ac"]["pool_digest"] == ref["ac"]["pool_digest"]
+    return diffs
+
+
+def dp_phase(smi, cfg=None):
+    """[dp]: (a) NCCL at world size 1 on the card: the four steps through a process
+    group's DataParallel against the path without a process group, bit for bit (the path
+    without a group repeated first, bit for bit); the bytes each update reduces, the
+    host-device syncs of one more step of each, the NCCL kernels' device time in one
+    profiled step. (b) two spawned ranks on the one card over gloo, 16 rows each of the
+    same global batch: the ranks bit for bit against each other, within tolerance
+    against (a)'s path without a group; the pool pointer equal; each rank's kernel
+    launches. Returns the result."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from diamond_tpu_torch import ops
+    from diamond_tpu_torch.config import AgentConfig
+    from diamond_tpu_torch.parallel import DataParallel
+
+    def free_port() -> int:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    t_phase = time.perf_counter()
+    cfg = cfg if cfg is not None else AgentConfig()
+    agent = dp_agent(cfg, "cuda")
+    inputs = dp_inputs(agent, "cuda")
+    ref = dp_steps(agent, inputs, DataParallel())
+    dp_compare(dp_steps(agent, inputs, DataParallel()), ref, "[dp] repeat without a group",
+               exact=True)
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        dp = DataParallel.from_process_group("cuda")
+        torch.cuda.synchronize()
+        count_reset()
+        got = dp_steps(agent, inputs, dp)
+        torch.cuda.synchronize()
+        launches = {name: getattr(ops, name).launches for name in KERNELS}
+        dp_compare(got, ref, "[dp] NCCL world size 1", exact=True)
+        measured = dp_steps(agent, inputs, dp, measure=True)
+    finally:
+        dist.destroy_process_group()
+    for name, n in launches.items():
+        check(n > 0, f"[dp] NCCL world size 1: {name} was not launched")
+    syncs = {name: measured[name]["syncs"] for name in DP_LOSS_KEY}
+    nccl = {name: measured[name]["nccl"] for name in DP_LOSS_KEY}
+    reduced = {name: got[name]["reduced_bytes"] for name in DP_LOSS_KEY}
+    check(not any(syncs[n] for n in ("denoiser", "rew_end", "model_free")),
+          f"[dp] a data-parallel step synchronised: {syncs}")
+    log(f"[dp] (a) NCCL, world size 1: denoiser, rew/end (store-fed), AC (int8 world model, "
+        f"pool) and model-free steps, {DP_UPDATES} updates each, equal bit for bit to the "
+        f"path without a process group (losses, norms, every gradient and parameter, pool "
+        f"pointer {ref['ac']['ptr']}); that path repeats bit for bit; on {smi}")
+    for name in DP_LOSS_KEY:
+        log(f"[dp]   {name}: {reduced[name] / 2**20:.2f} MiB reduced per update "
+            f"({reduced[name] // 4} f32), {sum(syncs[name].values())} host-device syncs "
+            f"per step {syncs[name]}, NCCL kernels {nccl[name]['ms']:.3f} ms of device time "
+            f"in {nccl[name]['launches']} launches {nccl[name]['kernels']} of the step's "
+            f"{nccl[name]['step_device_ms']:.2f} ms")
+    log(f"[launches] dp (a), the four steps through the NCCL group: {launches}")
+
+    t0 = time.perf_counter()
+    for r in range(DP_RANKS):
+        (OUT_DIR / f"dp_rank{r}.pt").unlink(missing_ok=True)
+    ctx = mp.start_processes(dp_rank, args=(DP_RANKS, free_port(), cfg), nprocs=DP_RANKS,
+                             join=False, start_method="spawn")
+    try:
+        try:
+            deadline = time.perf_counter() + DP_TIMEOUT_S
+            while not ctx.join(timeout=5):
+                check(time.perf_counter() < deadline, f"[dp] (b) the ranks ran past "
+                      f"{DP_TIMEOUT_S} s")
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+            raise SmokeFailure(f"[dp] (b) a rank failed: {e}") from e
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(OUT_DIR / f"dp_rank{r}.pt", weights_only=False)
+                 for r in range(DP_RANKS)]
+    finally:  # ~130 MB each: not left in the output directory
+        for r in range(DP_RANKS):
+            (OUT_DIR / f"dp_rank{r}.pt").unlink(missing_ok=True)
+    for r in range(1, DP_RANKS):
+        dp_compare(ranks[r], ranks[0], f"[dp] (b) rank {r} vs rank 0", exact=True)
+        check(ranks[r]["ac"]["calibration_digest"] == ranks[0]["ac"]["calibration_digest"],
+              "[dp] (b) the ranks' int8 collections differ")
+    diffs = dp_compare(ranks[0], ref, f"[dp] (b) {DP_RANKS} gloo ranks vs one", exact=False)
+    for r, res in enumerate(ranks):
+        for name, n in res["launches"].items():
+            check(n > 0, f"[dp] (b) rank {r}: {name} was not launched")
+    log(f"[dp] (b) {DP_RANKS} ranks over gloo on the one card, {BATCH // DP_RANKS} rows each "
+        f"of the global batch of {BATCH}: the ranks' gradients, parameters and losses equal "
+        f"bit for bit, their int8 collections and pools alike; pool pointer "
+        f"{ranks[0]['ac']['ptr']} as at world size 1; the ranks' pool against this "
+        f"process's: {'bit for bit' if diffs['pool_bitwise'] else 'not bit for bit'}, "
+        f"{ {k: float(f'{v:.3g}') for k, v in diffs['pool'].items()} } of their largest "
+        f"|value| (limit {DP_POOL_SHARE:.3g}); the four steps took "
+        f"{max(x['seconds'] for x in ranks):.1f} s in the ranks, {spawn_s:.1f} s with the "
+        f"spawn; on {smi}")
+    for name in DP_LOSS_KEY:
+        d = diffs[name]
+        log(f"[dp]   {name} vs world size 1: loss {d['loss_rel']:.3g} relative (limit "
+            f"{DP_LOSS_RTOL[name]}), gradients {d['grad_share']:.3g} of their leaf's largest "
+            f"|value| (limit {DP_GRAD_SHARE}), parameters {d['param_abs']:.3g} apart "
+            f"({d['param_in_lr']:.3g} lr; Adam's bound {2 * DP_UPDATES} lr)")
+    log(f"[launches] dp (b), rank 0: {ranks[0]['launches']}")
+    log(f"[dp] {time.perf_counter() - t_phase:.1f} s")
+    return dict(world1=dict(reduced_bytes=reduced, syncs=syncs, nccl=nccl, launches=launches,
+                            ptr=ref["ac"]["ptr"]),
+                ranks=dict(diffs=diffs, ptr=ranks[0]["ac"]["ptr"], seconds=spawn_s,
+                           launches=[x["launches"] for x in ranks]),
+                seconds=time.perf_counter() - t_phase)
+
+
 def num_sites(coll: dict) -> int:
     return sum(num_sites(v) if isinstance(v, dict) else k == "act_scale" for k, v in coll.items())
 
@@ -3118,6 +3558,8 @@ def main() -> int:
     ts_shapes, ts_launches, ts_runs, results["two_stage"] = two_stage_phase(smi)
     # the play app, both agents, headless
     play_shapes, play_launches, play_runs, results["play"] = play_phase(smi)
+    # data parallelism: the four steps through a process group (NCCL, then two gloo ranks)
+    results["dp"] = dp_phase(smi)
 
     paths = ("bf16", "int8", "ac_step", "denoiser_step", "rew_end_step", "mf_ac_step",
              "trainer")

@@ -238,13 +238,27 @@ class TrainerConfig:
 
 
 @dataclass
+class DistributedConfig:
+    """``tpu.distributed``: a process group across hosts (parallel/multihost.py). The
+    training CLI runs one host and refuses a coordinator; ``cpu_gloo`` picks gloo over
+    NCCL (the CPU test fabric)."""
+
+    coordinator: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+    cpu_gloo: bool = False
+
+
+@dataclass
 class RuntimeConfig:
     """The trainer.yaml ``tpu`` options the port follows. ``int8_rollout``: calibrate
     the denoiser and the rew/end model (``DiffusionSampler.calibrate``,
     ``RewEndModel.calibrate``) so that the rollout runs the static int8 path on the site
     kinds of ``int8_sites`` ('all' or a comma list of conv3x3, conv1x1, dense, lstm).
     ``grad_acc_sum``: with ``grad_acc_steps`` > 1 the update takes the sum of the
-    micro-gradients, not their mean (``models/agent.py`` ``AdamWClip``)."""
+    micro-gradients, not their mean (``models/agent.py`` ``AdamWClip``).
+    ``data_parallel``: one process per card of ``common.devices`` where there are more
+    than one and every batch size divides over them (main.py)."""
 
     compute_dtype: str = "bfloat16"
     pool_policy_feats: bool = True
@@ -254,6 +268,8 @@ class RuntimeConfig:
     device_dataset: bool = True                   # the device episode store
     device_dataset_capacity: Optional[int] = None  # steps; None: from the collection budget
     profile_dir: Optional[str] = None             # a torch.profiler trace of epoch 1
+    data_parallel: bool = True
+    distributed: DistributedConfig = field(default_factory=DistributedConfig)
 
 
 # ---------------------------------------------------------------------------
@@ -281,6 +297,7 @@ class InitializationConfig:
 
 @dataclass
 class CommonConfig:
+    devices: Any = "all"  # "all", or a card index or a list of them
     seed: Optional[int] = None
     resume: bool = False
 
@@ -399,13 +416,6 @@ ENV_GROUPS = ("atari", "fake")
 AGENT_GROUPS = ("csgo", "default")
 
 
-def _refusal(key: str) -> Optional[str]:
-    """Why an override is refused, or None."""
-    if key.startswith("tpu.distributed"):
-        return "the trainer runs on one card (tpu.distributed)"
-    return None
-
-
 # (target, source): the YAML interpolations, applied after the overrides unless an
 # override set the target (trainer.yaml:160, 165, 179, 183, 196; agent/*.yaml; env/*).
 # The models' frame size is derived apart (``derive``): it is divided by the
@@ -515,9 +525,6 @@ def load_config(overrides: Sequence[str] = (), base: Optional[Dict[str, Any]] = 
             raise ValueError(f"Override must be key=value, got {ov!r}")
         key, _, raw = ov.partition("=")
         key, raw = key.strip().lstrip("+"), raw.strip()
-        why = _refusal(key)
-        if why:
-            raise ValueError(f"{ov}: {why}")
         if key == "env":
             env_group(raw)  # refuses an unknown group
             group_env = raw

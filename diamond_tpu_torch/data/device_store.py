@@ -1,5 +1,5 @@
-"""A device-resident mirror of the episode store (diamond_tpu/data/device_store.py,
-without the data-parallel mesh): batches assembled by gathers on the card.
+"""A device-resident mirror of the episode store (diamond_tpu/data/device_store.py):
+batches assembled by gathers on the card.
 
 The host ``Dataset`` stays the durable record. Its frames cross to the device once,
 when an episode is added (``sync``); after that a training batch, or the imagination's
@@ -17,6 +17,11 @@ appended to in place where it is the ring's tail, else written anew at the tail,
 old region left as waste. When an upload would overflow the ring and waste can be
 reclaimed, the live episodes are packed to the front by one gather on the device; if it
 still does not fit, ``sync`` raises.
+
+Data parallelism: the ring is replicated, as the JAX package's is on a mesh. Every rank
+keeps a whole ring, synced from the same ``Dataset``; ``make_batch(..., dp)`` builds the
+global batch's index arrays on every rank (identical, since the samplers share a seed)
+and gathers only the rank's rows, with the global padding mask beside them.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..parallel.mesh import DataParallel
 from ..utils import to_device
 from .dataset import Dataset
 from .segment import DeviceBatch, SegmentId
@@ -187,19 +193,24 @@ class DeviceEpisodeStore:
         return np.concatenate([idx.ravel(), mask.ravel(), ep_idx, has_final])
 
     def make_batch(self, segment_ids: List[SegmentId],
-                   masked_out: Optional[List[bool]] = None) -> DeviceBatch:
+                   masked_out: Optional[List[bool]] = None,
+                   dp: Optional[DataParallel] = None) -> DeviceBatch:
         """The ``DeviceBatch`` of the given windows (``[make_segment ...]`` then
         ``collate_segments_to_batch``), gathered on the device; ``masked_out`` marks
-        windows whose mask is all False (the traverser's padding copies)."""
+        windows whose mask is all False (the traverser's padding copies). With a
+        data-parallel ``dp`` that issues collectives, the windows are the global batch:
+        this rank's rows of it, and its whole mask as ``mask_global``."""
         b = len(segment_ids)
         t = segment_ids[0].stop - segment_ids[0].start
         with self._lock:
             host = self._index_arrays(segment_ids, masked_out)
             dev = to_device(host, self.device)
             idx, mask, ep_idx, has_final = dev.split([b * t, b * t, b, b])
-            idx = idx.view(b, t)
-            m = mask.view(b, t).bool()
-            hf = has_final.bool()
+            mask_global = mask.view(b, t).bool()
+            sharded = dp is not None and dp.active
+            take = dp.take if sharded else (lambda x: x)
+            idx, m = take(idx.view(b, t)), take(mask_global)
+            ep_idx, hf = take(ep_idx), take(has_final.bool())
             return DeviceBatch(
                 obs=torch.where(m[..., None, None, None], self.obs[idx], 0),
                 act=torch.where(m, self.act[idx], 0),
@@ -209,6 +220,7 @@ class DeviceEpisodeStore:
                 mask_padding=m,
                 final_obs=torch.where(hf[:, None, None, None], self.final_obs[ep_idx], 0),
                 has_final_obs=hf,
+                mask_global=mask_global if sharded else None,
             )
 
     def gather_ic(self, segment_ids: List[SegmentId]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -220,14 +232,17 @@ class DeviceEpisodeStore:
 
 class StoreBatchIterator:
     """Batches of the sampler's segment ids, sampled on the host and gathered on the
-    device; the gather is queued work, so no thread is needed."""
+    device; the gather is queued work, so no thread is needed. ``dp``: this rank's rows
+    of each global batch."""
 
-    def __init__(self, store: DeviceEpisodeStore, sampler) -> None:
+    def __init__(self, store: DeviceEpisodeStore, sampler,
+                 dp: Optional[DataParallel] = None) -> None:
         self.store = store
         self.sampler = sampler
+        self.dp = dp
 
     def __iter__(self):
         return self
 
     def __next__(self) -> DeviceBatch:
-        return self.store.make_batch(self.sampler.sample())
+        return self.store.make_batch(self.sampler.sample(), dp=self.dp)

@@ -3,7 +3,10 @@ episode store (``tpu.device_dataset`` off): producer threads draw segment ids fr
 sampler, collate the segments on the host and pack the batch's arrays into one buffer
 of pinned memory; one non-blocking copy takes it to the card on a side stream, with an
 event the consumer's stream waits on before it uses the batch. Batches come out in the
-sampler's order whatever the number of workers.
+sampler's order whatever the number of workers. Under data parallelism every rank draws
+and collates the global batch (the samplers are seeded alike) and packs only its own
+rows, with the global padding mask beside them (``BatchPrefetcher(dp=...)``, the
+counterpart of the JAX prefetcher's ``sharding``).
 
 On the CPU (the tests) the batch is the collate's arrays as tensors, no stream.
 """
@@ -12,15 +15,15 @@ from __future__ import annotations
 
 import queue
 import threading
-from dataclasses import fields
-from typing import Iterator, List, Tuple, Union
+from typing import Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import DataParallel
 from .batch_sampler import BatchSampler
 from .dataset import Dataset
-from .segment import Batch, DeviceBatch, collate_segments_to_batch
+from .segment import DENSE_FIELDS, Batch, DeviceBatch, collate_segments_to_batch
 
 _ALIGN = 16
 
@@ -29,11 +32,17 @@ def sample_batch(dataset: Dataset, sampler: BatchSampler) -> Batch:
     return collate_segments_to_batch([dataset[sid] for sid in sampler.sample()])
 
 
-def pack(batch: Batch) -> Tuple[np.ndarray, List[Tuple[str, np.dtype, tuple, int]]]:
+def pack(batch: Batch, dp: Optional[DataParallel] = None
+         ) -> Tuple[np.ndarray, List[Tuple[str, np.dtype, tuple, int]]]:
     """The batch's dense arrays in one byte buffer, each at an offset aligned to 16
-    bytes, and the layout (name, dtype, shape, offset) to read them back."""
-    arrays = [(f.name, np.ascontiguousarray(getattr(batch, f.name)))
-              for f in fields(DeviceBatch)]
+    bytes, and the layout (name, dtype, shape, offset) to read them back. With a
+    data-parallel ``dp`` that issues collectives: only its rank's rows, and the whole
+    padding mask as ``mask_global``."""
+    arrays = [(name, np.ascontiguousarray(getattr(batch, name))) for name in DENSE_FIELDS]
+    if dp is not None and dp.active:
+        rows = dp.rows(len(batch.obs))
+        arrays = [(name, np.ascontiguousarray(a[rows])) for name, a in arrays] + \
+            [("mask_global", np.ascontiguousarray(batch.mask_padding))]
     layout, off = [], 0
     for name, a in arrays:
         layout.append((name, a.dtype, a.shape, off))
@@ -60,12 +69,14 @@ def unpack(buf: torch.Tensor, layout) -> DeviceBatch:
 class BatchPrefetcher:
     """An endless iterator of batches on ``device``, ``prefetch`` ahead.
     ``workers``: producer threads (0: each batch made on the consumer's thread when
-    asked for, no lookahead)."""
+    asked for, no lookahead). ``dp``: this rank's rows of each global batch."""
 
     def __init__(self, dataset: Dataset, sampler: BatchSampler, prefetch: int = 4,
-                 workers: int = 2, device: Union[str, torch.device] = "cuda") -> None:
+                 workers: int = 2, device: Union[str, torch.device] = "cuda",
+                 dp: Optional[DataParallel] = None) -> None:
         self.dataset = dataset
         self.sampler = sampler
+        self.dp = dp
         self.device = torch.device(device)
         self._queue: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch))
         self._stop = threading.Event()
@@ -79,7 +90,8 @@ class BatchPrefetcher:
         with self._lock:
             seq, self._next_seq = self._next_seq, self._next_seq + 1
             ids = self.sampler.sample()
-        buf, layout = pack(collate_segments_to_batch([self.dataset[sid] for sid in ids]))
+        buf, layout = pack(collate_segments_to_batch([self.dataset[sid] for sid in ids]),
+                           self.dp)
         host = torch.from_numpy(buf)
         if self._stream is None:
             return seq, (unpack(host.to(self.device), layout), None)

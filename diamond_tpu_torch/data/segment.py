@@ -11,7 +11,7 @@ arrays as tensors on one device; frames stay uint8 until the train step converts
 from __future__ import annotations
 
 from dataclasses import dataclass, field, fields
-from typing import Any, Dict, List, Union
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -64,7 +64,9 @@ class Batch:
 @dataclass
 class DeviceBatch:
     """The dense arrays of a ``Batch`` as tensors on one device (the segments' info and
-    ids stay on the host)."""
+    ids stay on the host). Under data parallelism a batch holds one rank's rows of the
+    global batch, and ``mask_global`` the global batch's whole padding mask (the losses
+    divide by its counts); elsewhere it is None."""
 
     obs: torch.Tensor            # uint8 (B, T, H, W, C)
     act: torch.Tensor            # int32 (B, T)
@@ -74,14 +76,19 @@ class DeviceBatch:
     mask_padding: torch.Tensor   # bool (B, T): False where the segment was padded
     final_obs: torch.Tensor      # uint8 (B, H, W, C)
     has_final_obs: torch.Tensor  # bool (B,)
+    mask_global: Optional[torch.Tensor] = None  # bool (world * B, T)
 
     @classmethod
     def from_batch(cls, batch: Batch, device: Union[str, torch.device] = "cuda"
                    ) -> "DeviceBatch":
         """The batch's arrays copied to ``device`` (the card unless the caller asks for
         another), dtypes unchanged."""
-        return cls(**{f.name: torch.from_numpy(np.ascontiguousarray(getattr(batch, f.name)))
-                      .to(device) for f in fields(cls)})
+        return cls(**{name: torch.from_numpy(np.ascontiguousarray(getattr(batch, name)))
+                      .to(device) for name in DENSE_FIELDS})
+
+
+# the dense arrays a Batch and a DeviceBatch share
+DENSE_FIELDS = tuple(f.name for f in fields(DeviceBatch) if f.name != "mask_global")
 
 
 def make_segment(episode: Episode, segment_id: SegmentId, should_pad: bool = True) -> Segment:

@@ -17,6 +17,15 @@ caller passes it; the same draws give the same trajectory.
 The pool pointer is a device tensor and dead-env resets are gathers and ``where``s, so
 a rollout step never waits on the host.
 
+Data parallelism (``ImaginationEngine(dp=...)``, parallel/mesh.py): the state holds the
+rank's env rows, the draws are the global batch's (each rank takes its rows), and the
+pool is whole on every rank with one global pointer: a reset takes the exclusive prefix
+count of deaths over the global batch (each rank's deaths assembled by one all_reduce),
+and the pointer advances by the global count, the same on every rank. Each rank's
+``PoolManager`` builds its pool from the same data, sampler seed and weights, with no
+collective on its thread; at the swap the trainer takes rank 0's burned-in state
+(``parallel.replicate_pool``).
+
 The static int8 rollout (ops/quant.py) is structural: the sampler quantizes iff the
 denoiser holds a calibrated collection, and the rew/end step enters the int8 scope iff
 the rew/end model does. The IC burn-in (``make_ic_preparer``) never enters it.
@@ -50,6 +59,7 @@ from ..models.denoiser import Denoiser
 from ..models.diffusion_sampler import DiffusionSampler
 from ..models.rew_end_model import RewEndModel
 from ..ops import quant
+from ..parallel.mesh import DataParallel
 
 
 @dataclass
@@ -139,11 +149,13 @@ def make_ic_preparer(rew_end_model: RewEndModel, chunk: int = 512):
 
 class ImaginationEngine:
     def __init__(self, denoiser: Denoiser, rew_end_model: RewEndModel,
-                 actor_critic: ActorCritic, cfg: WorldModelEnvConfig) -> None:
+                 actor_critic: ActorCritic, cfg: WorldModelEnvConfig,
+                 dp: Optional[DataParallel] = None) -> None:
         self.denoiser = denoiser
         self.rew_end_model = rew_end_model
         self.actor_critic = actor_critic
         self.cfg = cfg
+        self.dp = dp if dp is not None else DataParallel()
         self.sampler = DiffusionSampler(denoiser, cfg.diffusion_sampler)
 
     # -- one world-model transition -------------------------------------------
@@ -178,10 +190,12 @@ class ImaginationEngine:
     @torch.no_grad()
     def _reset_dead(self, st: ImagState, pool: ICPool, dead: torch.Tensor
                     ) -> Tuple[ImagState, ICPool, torch.Tensor]:
-        """Masked pool pull for dead envs: the k-th dead env (in batch order) takes entry
-        ptr + k (mod pool size). Also returns the per-env pool indices (0 where alive)."""
-        dead_i = dead.long()
-        before = torch.cumsum(dead_i, 0) - dead_i  # exclusive prefix count of deaths
+        """Masked pool pull for dead envs: the k-th dead env (in global batch order)
+        takes entry ptr + k (mod pool size). Also returns the per-env pool indices (0
+        where alive)."""
+        dead_g = self.dp.assemble(dead.long())
+        # exclusive prefix count of deaths over the global batch, this rank's rows
+        before = self.dp.take(torch.cumsum(dead_g, 0) - dead_g)
         idx = torch.where(dead, (pool.ptr + before) % pool.size, torch.zeros_like(before))
 
         m5 = dead[:, None, None, None, None]
@@ -194,7 +208,7 @@ class ImaginationEngine:
             re_cx=torch.where(m2, pool.cx[idx], st.re_cx),
             ep_len=torch.where(dead, torch.zeros_like(st.ep_len), st.ep_len),
         )
-        return st, replace(pool, ptr=pool.ptr + dead_i.sum()), idx
+        return st, replace(pool, ptr=pool.ptr + dead_g.sum()), idx
 
     # -- rollout ------------------------------------------------------------------
 
@@ -208,12 +222,15 @@ class ImaginationEngine:
         the returned state are detached).
 
         Returns (trajectory dict of (B, T) tensors, new state, new pool). Without
-        ``draws`` the random numbers come from ``generator``."""
+        ``draws`` the random numbers come from ``generator``; under data parallelism
+        they are the global batch's, and the rank takes its rows."""
         ac = self.actor_critic
         b, n_cond = st.act_buffer.shape
         if draws is None:
-            draws = draw_rollout_noise(num_steps, b, tuple(st.obs_buffer.shape[2:]),
-                                       ac.cfg.num_actions, generator, st.obs_buffer.device)
+            draws = draw_rollout_noise(num_steps, b * self.dp.world,
+                                       tuple(st.obs_buffer.shape[2:]), ac.cfg.num_actions,
+                                       generator, st.obs_buffer.device)
+        draws = RolloutDraws(*(self.dp.take(x, 1) for x in draws))
 
         def encode_context(obs_buffer: torch.Tensor) -> torch.Tensor:
             flat = obs_to_float(obs_buffer.reshape((b * n_cond,) + tuple(obs_buffer.shape[2:])))
@@ -270,18 +287,20 @@ class ImaginationEngine:
     # -- initial state ------------------------------------------------------------
 
     def initial_state(self, pool: ICPool, batch_size: int) -> Tuple[ImagState, ICPool]:
-        """Fill all envs from the pool with a zero policy LSTM state."""
+        """Fill all envs from the pool with a zero policy LSTM state. ``batch_size`` is
+        the global batch's; the state holds this rank's rows of it."""
         d = self.actor_critic.cfg.lstm_dim
         dev = pool.obs.device
-        idx = (pool.ptr + torch.arange(batch_size, device=dev)) % pool.size
+        idx = self.dp.take((pool.ptr + torch.arange(batch_size, device=dev)) % pool.size)
+        b = idx.shape[0]
         st = ImagState(
             obs_buffer=pool.obs[idx],
             act_buffer=pool.act[idx],
             re_hx=pool.hx[idx],
             re_cx=pool.cx[idx],
-            ac_hx=torch.zeros((batch_size, d), device=dev),
-            ac_cx=torch.zeros((batch_size, d), device=dev),
-            ep_len=torch.zeros((batch_size,), dtype=torch.int32, device=dev),
+            ac_hx=torch.zeros((b, d), device=dev),
+            ac_cx=torch.zeros((b, d), device=dev),
+            ep_len=torch.zeros((b,), dtype=torch.int32, device=dev),
         )
         return st, replace(pool, ptr=pool.ptr + batch_size)
 

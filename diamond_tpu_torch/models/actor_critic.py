@@ -12,7 +12,7 @@ it among tied maxima, which bf16 activations often hold).
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -84,22 +84,30 @@ class ActorCritic:
 
     def loss_from_rollout(self, act: torch.Tensor, rew: torch.Tensor, end: torch.Tensor,
                           trunc: torch.Tensor, logits_act: torch.Tensor, val: torch.Tensor,
-                          val_bootstrap: torch.Tensor, loss_cfg: ActorCriticLossConfig
+                          val_bootstrap: torch.Tensor, loss_cfg: ActorCriticLossConfig,
+                          count: Optional[int] = None
                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """REINFORCE with baseline on lambda-returns. All inputs (B, T) but logits_act
-        (B, T, A); the gradient flows through logits_act and val only. The metrics stay
-        on the device."""
+        (B, T, A); the gradient flows through logits_act and val only. The means are over
+        ``count`` elements (B * T by default; under data parallelism the global batch's B *
+        T, so that the ranks' losses sum to the global mean). The metrics stay on the
+        device."""
         c = loss_cfg
+        share = 1.0 if count is None else rew.numel() / count
+
+        def mean(x: torch.Tensor) -> torch.Tensor:  # the rank's share of the global mean
+            return x.mean() if share == 1.0 else x.mean() * share
+
         logp = torch.log_softmax(logits_act, dim=-1)
         probs = torch.exp(logp)
-        entropy = (-(probs * logp).sum(dim=-1)).mean()
+        entropy = mean(-(probs * logp).sum(dim=-1))
 
         lambda_returns = compute_lambda_returns(rew, end, trunc, val_bootstrap, c.gamma,
                                                 c.lambda_).detach()
         logp_act = torch.gather(logp, -1, act[..., None].long())[..., 0]
         adv = (lambda_returns - val).detach()
-        loss_actions = (-logp_act * adv).mean()
-        loss_values = c.weight_value_loss * ((val - lambda_returns) ** 2).mean()
+        loss_actions = mean(-logp_act * adv)
+        loss_values = c.weight_value_loss * mean((val - lambda_returns) ** 2)
         loss_entropy = -c.weight_entropy_loss * entropy
 
         loss = loss_actions + loss_entropy + loss_values

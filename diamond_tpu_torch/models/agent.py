@@ -12,18 +12,21 @@ modules need no frame size to be built, so only the config carries it.
 ``configure_opt`` is the JAX package's optax chain: global-norm clipping, then AdamW
 with the minGPT decay split as a mask on the parameter names (the flax paths) and a
 linear warmup from 0; with ``grad_acc_steps`` k > 1 the trainer's ``optax.MultiSteps``
-around it (and ``optax.scale(k)`` in front under ``grad_acc_sum``).
+around it (and ``optax.scale(k)`` in front under ``grad_acc_sum``). Under data
+parallelism (``dp``) the gradients are summed over the ranks by one all_reduce of each
+step's gradient, before the clip (parallel/mesh.py).
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 
 from ..config import AgentConfig
+from ..parallel.mesh import DataParallel
 from .actor_critic import ActorCritic
 from .blocks import init_weights
 from .denoiser import Denoiser
@@ -135,16 +138,27 @@ class AdamWClip:
     (optax's form, acc + (g - acc) / (n + 1)) is kept, every k-th micro-step the chain
     updates the weights with it (with ``grad_acc_sum`` with k times it, the sum, so that
     clipping acts on the sum), and the other micro-steps leave the weights and the AdamW
-    moments as they are. The warmup counts the chain's updates, not the micro-steps."""
+    moments as they are. The warmup counts the chain's updates, not the micro-steps.
+
+    ``dp`` (data parallelism): each rank's gradients are its share of the global
+    gradient (the losses divide by global counts); they are summed over the ranks by one
+    flat all_reduce before the clip, so every rank clips and steps on the same gradient.
+    Under accumulation each micro-gradient is summed as it comes (k all_reduces an
+    update), so that each micro-step's gradient, and the norm it reports, is the global
+    one, as it is in the JAX package. ``reduced_bytes``: the bytes the last all_reduce
+    summed."""
 
     def __init__(self, lr: float, weight_decay: float, eps: float,
                  max_grad_norm: Optional[float] = None, lr_warmup_steps: int = 0,
-                 grad_acc_steps: int = 1, grad_acc_sum: bool = False) -> None:
+                 grad_acc_steps: int = 1, grad_acc_sum: bool = False,
+                 dp: Optional[DataParallel] = None) -> None:
         if grad_acc_steps < 1:
             raise ValueError(f"grad_acc_steps must be at least 1, got {grad_acc_steps}")
         self.lr, self.weight_decay, self.eps = lr, weight_decay, eps
         self.max_grad_norm, self.lr_warmup_steps = max_grad_norm, lr_warmup_steps
         self.grad_acc_steps, self.grad_acc_sum = grad_acc_steps, grad_acc_sum
+        self.dp = dp if dp is not None else DataParallel()
+        self.reduced_bytes = 0
 
     def lr_at(self, step: int) -> float:
         """The learning rate of update ``step`` (0-based): optax's linear schedule from 0."""
@@ -174,12 +188,19 @@ class AdamWClip:
     def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
         return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))))
 
-    def update(self, opt: torch.optim.AdamW, step: int) -> torch.Tensor:
-        """Clip the gradients to ``max_grad_norm`` by their global norm, step the
-        optimizer at ``lr_at(step)`` and clear the gradients. A parameter without a
-        gradient counts as a zero gradient, as in optax. Returns the global norm before
-        clipping, on the device; nothing here waits for the device."""
+    def reduce(self, grads: List[torch.Tensor]) -> None:
+        """Sum the gradients over the ranks (``dp``) in place."""
+        self.reduced_bytes = self.dp.all_reduce_sum_flat(grads)
+
+    def update(self, opt: torch.optim.AdamW, step: int, reduce: bool = True) -> torch.Tensor:
+        """Sum the gradients over the ranks (unless ``reduce`` is False: they were),
+        clip them to ``max_grad_norm`` by their global norm, step the optimizer at
+        ``lr_at(step)`` and clear the gradients. A parameter without a gradient counts
+        as a zero gradient, as in optax. Returns the global norm before clipping, on the
+        device; nothing here waits for the device."""
         grads = self.grads(opt)
+        if reduce:
+            self.reduce(grads)
         norm = self.global_norm(grads)
         if self.max_grad_norm is not None:
             # optax: g where norm < max, else g / norm * max
@@ -193,15 +214,18 @@ class AdamWClip:
         return norm
 
     def accumulate(self, opt: torch.optim.AdamW, acc: Optional[List[torch.Tensor]],
-                   micro_step: int) -> List[torch.Tensor]:
+                   micro_step: int) -> Tuple[List[torch.Tensor], torch.Tensor]:
         """Micro-step ``micro_step`` (0-based, counted over the whole run) of
-        ``optax.MultiSteps``: fold the gradients in ``.grad`` into the running mean
-        ``acc`` (zeros where it is None) and clear them; on every k-th micro-step update
-        the weights with the mean (times k under ``grad_acc_sum``) by ``update`` at the
-        chain's own count, micro_step // k. Returns the new running mean (zeros after an
-        update, as optax resets it)."""
+        ``optax.MultiSteps``: sum the gradients in ``.grad`` over the ranks, fold them
+        into the running mean ``acc`` (zeros where it is None) and clear them; on every
+        k-th micro-step update the weights with the mean (times k under
+        ``grad_acc_sum``) by ``update`` at the chain's own count, micro_step // k.
+        Returns the new running mean (zeros after an update, as optax resets it) and the
+        global norm of this micro-step's gradient."""
         k = self.grad_acc_steps
         grads = self.grads(opt)
+        self.reduce(grads)
+        norm = self.global_norm(grads)
         if acc is None:
             acc = [torch.zeros_like(g) for g in grads]
         n = micro_step % k
@@ -210,19 +234,21 @@ class AdamWClip:
         torch._foreach_add_(acc, delta)
         if n < k - 1:
             opt.zero_grad(set_to_none=True)
-            return acc
+            return acc, norm
         params = [p for g in opt.param_groups for p in g["params"]]
         for p, a in zip(params, acc):
             p.grad = a * float(k) if self.grad_acc_sum else a
-        self.update(opt, micro_step // k)
+        self.update(opt, micro_step // k, reduce=False)
         torch._foreach_zero_(acc)
-        return acc
+        return acc, norm
 
 
 def configure_opt(lr: float, weight_decay: float, eps: float,
                   max_grad_norm: Optional[float] = None, lr_warmup_steps: int = 0,
-                  grad_acc_steps: int = 1, grad_acc_sum: bool = False) -> AdamWClip:
+                  grad_acc_steps: int = 1, grad_acc_sum: bool = False,
+                  dp: Optional[DataParallel] = None) -> AdamWClip:
     """AdamW with masked weight decay, global-norm clipping and linear LR warmup; with
-    ``grad_acc_steps`` > 1, gradient accumulation (``AdamWClip.accumulate``)."""
+    ``grad_acc_steps`` > 1, gradient accumulation (``AdamWClip.accumulate``); with a
+    data-parallel ``dp``, the gradients summed over its ranks."""
     return AdamWClip(lr, weight_decay, eps, max_grad_norm, lr_warmup_steps, grad_acc_steps,
-                     grad_acc_sum)
+                     grad_acc_sum, dp)

@@ -155,14 +155,18 @@ class Denoiser:
 
     def loss(self, obs: torch.Tensor, act: torch.Tensor, mask: torch.Tensor,
              sigma_cfg: SigmaDistributionConfig, draws: Optional[DenoiserDraws] = None,
-             generator: Optional[torch.Generator] = None
+             generator: Optional[torch.Generator] = None,
+             count_mask: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The autoregressive training loss (the JAX package's ``Denoiser.loss``): obs (B,
         T, H, W, C) float in [-1, 1], act (B, T) int, mask (B, T) bool. Over the ``T - n``
         windows (n conditioning frames) the masked mean squared error of the F-space
         prediction, each window conditioned on the previous window's quantized,
         detached prediction in place of its last frame. Random numbers from ``draws``,
-        else from ``generator``. Returns (loss, {"loss_denoising": detached loss})."""
+        else from ``generator``. ``count_mask``: the mask whose counts each window's mean
+        divides by, ``mask`` by default; under data parallelism the global batch's (this
+        batch holds one rank's rows of it), so that the ranks' losses sum to the global
+        mean. Returns (loss, {"loss_denoising": detached loss})."""
         n = self.cfg.inner_model.num_steps_conditioning
         b, t_total, h, w, c = obs.shape
         windows = t_total - n
@@ -180,7 +184,8 @@ class Denoiser:
             target = (next_obs - cs.c_skip * noisy) / cs.c_out
             se = (model_output - target) ** 2
             m = mask[:, n + i].float()
-            denom = torch.clamp_min(m.sum() * (h * w * c), 1.0)
+            count = m.sum() if count_mask is None else count_mask[:, n + i].float().sum()
+            denom = torch.clamp_min(count * (h * w * c), 1.0)
             loss = loss + (se.sum(dim=(1, 2, 3)) * m).sum() / denom
             frames[n + i] = self.wrap_model_output(noisy, model_output.detach(), cs)
         loss = loss / windows
@@ -188,7 +193,8 @@ class Denoiser:
 
     def loss_upsampler(self, obs: torch.Tensor, mask: torch.Tensor,
                        sigma_cfg: SigmaDistributionConfig, draws: Optional[DenoiserDraws] = None,
-                       generator: Optional[torch.Generator] = None
+                       generator: Optional[torch.Generator] = None,
+                       count_mask: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The upsampler's per-frame training loss (the JAX package's ``loss_upsampler``):
         obs (B, T, H, W, C) float in [-1, 1] at full resolution, mask (B, T) bool. Time
@@ -196,8 +202,8 @@ class Denoiser:
         low-res rendition (area downsample by ``upsampling_factor``, snapped to the uint8
         grid as the low-res model's samples are, upsampled bilinearly). The masked mean
         squared error of the F-space prediction. Random numbers from ``draws`` (one
-        window of B * T frames), else from ``generator``. Returns (loss,
-        {"loss_denoising": detached loss})."""
+        window of B * T frames), else from ``generator``. ``count_mask``: as in ``loss``.
+        Returns (loss, {"loss_denoising": detached loss})."""
         f = self.cfg.upsampling_factor
         if f is None:
             raise ValueError("loss_upsampler needs a denoiser with an upsampling_factor")
@@ -213,6 +219,7 @@ class Denoiser:
         model_output = self.compute_model_output(noisy, cond, None, cs)
         target = (x - cs.c_skip * noisy) / cs.c_out
         se = (model_output - target) ** 2
-        denom = torch.clamp_min(m.sum() * (h * w * c), 1.0)
+        count = m.sum() if count_mask is None else count_mask.reshape(-1).float().sum()
+        denom = torch.clamp_min(count * (h * w * c), 1.0)
         loss = (se.sum(dim=(1, 2, 3)) * m).sum() / denom
         return loss, {"loss_denoising": loss.detach()}

@@ -22,6 +22,7 @@ import torch
 
 from ..config import DiffusionSamplerConfig
 from ..ops import quant
+from ..parallel.mesh import DataParallel
 from .denoiser import Denoiser, upsample_frame
 
 
@@ -73,14 +74,17 @@ class DiffusionSampler:
     def calibrate(self, prev_obs: torch.Tensor, prev_act: Optional[torch.Tensor], sites=None,
                   x_init: Optional[torch.Tensor] = None,
                   churn_noise: Optional[Sequence[torch.Tensor]] = None,
-                  generator: Optional[torch.Generator] = None) -> dict:
+                  generator: Optional[torch.Generator] = None,
+                  dp: Optional[DataParallel] = None) -> dict:
         """Observe every site's input range over one sampling pass and install the
         "quant" collection in the denoiser (a stale one is dropped first); returns it.
         The ranges are max-merged over the sigma steps. ``sites``: which site kinds
         quantize (``quant.parse_sites``; config ``int8_sites``); the others keep their
         unquantized path. A selection that matches nothing leaves the denoiser
         unquantized and returns {}. Call with representative conditioning frames (the
-        live rollout buffers); the draws are injectable as in ``sample``."""
+        live rollout buffers); the draws are injectable as in ``sample``. ``dp`` (data
+        parallelism: the frames are the rank's rows): each site's range is the max over
+        the ranks, so every rank folds the same int8 weights."""
         sites = quant.parse_sites(sites)
         net = self.denoiser.inner_model
         quant.strip(net)
@@ -89,6 +93,8 @@ class DiffusionSampler:
             self.sample(prev_obs, prev_act, x_init, churn_noise, generator)
         if not registry:
             raise RuntimeError("calibration saw no quantizable sites")
+        if dp is not None:
+            quant.all_reduce_ranges(registry, dp)
         coll = quant.registry_to_collection(registry, sites)
         quant.install(net, coll)
         return coll

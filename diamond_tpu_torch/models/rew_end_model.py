@@ -111,14 +111,18 @@ class RewEndModel:
 
     def loss(self, batch_obs: torch.Tensor, batch_act: torch.Tensor, batch_rew: torch.Tensor,
              batch_end: torch.Tensor, batch_mask: torch.Tensor, final_obs: torch.Tensor,
-             has_final_obs: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
+             has_final_obs: torch.Tensor, count_mask: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """The masked cross-entropy training loss and its metrics (on the device, no
         graph): ``loss_rew``, ``loss_end``, ``loss_total`` and ``confusion_matrix``
         {"rew": (3, 3), "end": (2, 2)}, rows the true classes.
 
         batch_obs: (B, T, H, W, C) float [-1, 1]; batch_{act,rew,end,mask}: (B, T);
         final_obs: (B, H, W, C) float, the true last frame of each segment's episode;
-        has_final_obs: (B,) bool, that frame is valid."""
+        has_final_obs: (B,) bool, that frame is valid. count_mask: the (B', T) mask whose
+        count the means divide by, ``batch_mask`` by default; under data parallelism the
+        global batch's (this batch holds one rank's rows of it), so that the ranks'
+        losses and confusion matrices sum to the global ones."""
         obs = batch_obs[:, :-1]
         act = batch_act[:, :-1]
         next_obs = batch_obs[:, 1:]
@@ -139,7 +143,8 @@ class RewEndModel:
         target_rew = torch.sign(rew).long() + 1  # {-1, 0, 1} -> {0, 1, 2}
         target_end = end.long()
         m = mask.float()
-        denom = m.sum().clamp(min=1.0)
+        count = m.sum() if count_mask is None else count_mask[:, :-1].float().sum()
+        denom = count.clamp(min=1.0)
 
         def masked_ce(logits, targets):
             logp = torch.log_softmax(logits, dim=-1)
@@ -162,11 +167,12 @@ class RewEndModel:
 
     @torch.no_grad()
     def calibrate(self, obs: torch.Tensor, act: torch.Tensor, next_obs: torch.Tensor,
-                  sites=None) -> dict:
+                  sites=None, dp=None) -> dict:
         """Observe every site's input range over one ``predict_rew_end`` and install the
         "quant" collection in the net (a stale one is dropped first); returns it, {} when
         ``sites`` (``quant.parse_sites``) matches nothing. The LSTM's input range is taken
-        over the whole sequence."""
+        over the whole sequence. ``dp`` (data parallelism: the frames are the rank's
+        rows): each site's range is the max over the ranks."""
         sites = quant.parse_sites(sites)
         quant.strip(self.net)
         registry: dict = {}
@@ -174,6 +180,8 @@ class RewEndModel:
             self.predict_rew_end(obs, act, next_obs)
         if not registry:
             raise RuntimeError("calibration saw no quantizable sites")
+        if dp is not None:
+            quant.all_reduce_ranges(registry, dp)
         coll = quant.registry_to_collection(registry, sites)
         quant.install(self.net, coll)
         return coll

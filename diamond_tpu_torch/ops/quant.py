@@ -113,6 +113,13 @@ def record(module: nn.Module, act_max: torch.Tensor, kind: str,
                 (None if w is None else w.detach()) if prev is None else prev[2])
 
 
+def all_reduce_ranges(registry: dict, dp) -> None:
+    """Each site's |x| maxima, max-merged over the data-parallel ranks (``dp``) by one
+    all_reduce, in place: every rank then folds the same int8 weights. The registry's
+    order (the order the forward met the sites) is the same on every rank."""
+    dp.all_reduce_max_flat([v for _, v, _ in registry.values()])
+
+
 def fold_quantize_weight(w: torch.Tensor, act_max: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fold the per-input-channel activation scales into ``w`` (..., Cin, Cout) and

@@ -1,4 +1,5 @@
-"""The training loop (diamond_tpu/trainer.py) on one card: collect -> train the denoiser,
+"""The training loop (diamond_tpu/trainer.py) on one card, or as one rank of a
+data-parallel group (one process per card): collect -> train the denoiser,
 the rew/end model and the actor-critic in imagination -> collect test episodes and
 evaluate -> log and checkpoint, per epoch.
 
@@ -32,15 +33,27 @@ evaluate -> log and checkpoint, per epoch.
 The card runs everything unless the caller passes ``device="cpu"`` (the tests). Each
 consumer of random numbers has its own generator, seeded from ``common.seed``: numpy
 (the samplers, the env seeds), a CPU generator for the initial weights, and on the
-device one each for collection, the denoiser's draws and the rollout's noise (and the
-calibration's draws).
+device one each for collection, the denoiser's draws, the rollout's noise (and the
+calibration's draws), the upsampler's draws and the evaluation's draws.
+
+Data parallelism (``dp``, a ``DataParallel`` of a process group; main.py spawns the
+ranks): every rank holds the whole models, optimizer states, datasets' index, device
+store and IC pool, seeds every generator alike, and trains on its rows of each global
+batch with the JAX package's global semantics (parallel/mesh.py). Rank 0 alone collects
+(the initial collection, each epoch's, the test and final ones), evaluates on the full
+test batches, logs and writes checkpoints; after a collection it broadcasts the train
+dataset's index (the episode files it wrote are read from the run dir by every rank,
+one host) and the collecting epochs' count, and every rank syncs its own store. The step
+metrics are summed over the ranks once per component (``_materialize_logs``); a barrier
+ends each checkpoint, so each epoch. Only the main thread issues collectives, in the
+same order on every rank.
 
 Metrics stay on the device during a component's steps and are read with one copy per
 key at its end (``_materialize_logs``). ``timings`` holds the wall seconds of each part
 of the run (the card synchronised at the parts' boundaries only): one entry for the
 initial collection (epoch 0), one per epoch, one for the final collection.
 
-Not ported: the data-parallel mesh (one card), the host RSS guard.
+Not ported: the host RSS guard.
 """
 
 from __future__ import annotations
@@ -70,6 +83,7 @@ from .envs.env import make_env
 from .envs.world_model_env import ImaginationEngine, PoolManager
 from .models.agent import Agent
 from .ops import quant
+from .parallel import DataParallel, replicate, replicate_pool
 from .training import (OptimizerSpec, TrainState, make_ac_train_step,
                        make_denoiser_eval_step, make_denoiser_train_step,
                        make_model_free_ac_train_step, make_rew_end_eval_step,
@@ -81,11 +95,14 @@ from .utils import (Logs, MetricsLogger, count_parameters, final_protocol_metric
                     save_info_for_import_script, set_seed)
 
 POOL_CHUNK = 512
+# step metrics equal on every rank (not summed over the ranks)
+REPLICATED = frozenset({"grad_norm_before_clip"})
 
 
 class Trainer:
     def __init__(self, cfg: Config, root_dir: Path, run_dir: Optional[Path] = None,
-                 device: Union[str, torch.device] = "cuda") -> None:
+                 device: Union[str, torch.device] = "cuda",
+                 dp: Optional[DataParallel] = None) -> None:
         self._cfg = cfg
         self._root_dir = Path(root_dir)
         self._run_dir = Path(run_dir) if run_dir is not None else Path.cwd()
@@ -93,12 +110,16 @@ class Trainer:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: the trainer runs on an NVIDIA GPU (the "
                                "tests pass device='cpu')")
+        self._dp = dp if dp is not None else DataParallel(self.device)
+        self._main = self._dp.is_main
 
         seed = cfg.common.seed if cfg.common.seed is not None else random.randint(0, 10 ** 9)
+        seed = self._dp.broadcast_object(seed)  # every rank draws alike
         set_seed(seed)
         self._np_rng = np.random.default_rng(seed)
         self._gens = {name: torch.Generator(device=self.device).manual_seed(seed + i)
-                      for i, name in enumerate(("denoiser", "rollout", "upsampler"), start=3)}
+                      for i, name in enumerate(("denoiser", "rollout", "upsampler", "eval"),
+                                               start=3)}
 
         self._is_static_dataset = cfg.static_dataset.path is not None
         self._is_model_free = cfg.training.model_free
@@ -113,12 +134,13 @@ class Trainer:
         self._r_quant_step = -1   # the rew/end model's
         self.calibrations: List[Dict[str, Any]] = []
         if self._int8_rollout:
-            print("int8 rollout inference enabled (tpu.int8_rollout)")
+            self._print("int8 rollout inference enabled (tpu.int8_rollout)")
 
-        self.logger = MetricsLogger(self._run_dir / "metrics.jsonl", asdict(cfg.wandb))
+        self.logger = MetricsLogger(self._run_dir / "metrics.jsonl", asdict(cfg.wandb)) \
+            if self._main else None
         self._path_ckpt_dir = self._run_dir / "checkpoints"
         self._path_state_ckpt = self._path_ckpt_dir / "state.pt"
-        if not cfg.common.resume:
+        if not cfg.common.resume and self._main:
             self._path_ckpt_dir.mkdir(exist_ok=False, parents=True)
             save_config(cfg, self._run_dir / "config" / "trainer.json")
             src, src_copy = self._root_dir / "diamond_tpu_torch", self._run_dir / "src"
@@ -126,12 +148,14 @@ class Trainer:
                 shutil.copytree(src, src_copy,
                                 ignore=shutil.ignore_patterns("build", "__pycache__"))
 
-        # datasets
+        # datasets: rank 0's on disk; the other ranks read its episode files
         p = Path(cfg.static_dataset.path) if self._is_static_dataset \
             else self._run_dir / "dataset"
         self.train_dataset = Dataset(p / "train", "train_dataset",
-                                     cache_in_ram=cfg.training.cache_in_ram)
-        self.test_dataset = Dataset(p / "test", "test_dataset", cache_in_ram=True)
+                                     cache_in_ram=cfg.training.cache_in_ram,
+                                     save_on_disk=self._main)
+        self.test_dataset = Dataset(p / "test", "test_dataset", cache_in_ram=True,
+                                    save_on_disk=self._main)
         self.train_dataset.load_from_default_path()
         self.test_dataset.load_from_default_path()
         if self._is_static_dataset:
@@ -160,8 +184,10 @@ class Trainer:
             self.agent.load(Path(init.path_to_ckpt), load_denoiser=init.load_denoiser,
                             load_rew_end_model=init.load_rew_end_model,
                             load_actor_critic=init.load_actor_critic)
+        for net in self.agent.nets.values():
+            replicate(net, self._dp)
 
-        if not self._is_static_dataset:
+        if not self._is_static_dataset and self._main:
             self._train_collector = Collector(train_env, self.agent.actor_critic,
                                               self.train_dataset,
                                               epsilon=cfg.collection.train.epsilon, seed=seed)
@@ -175,11 +201,12 @@ class Trainer:
                                                         getattr(cfg, name).training,
                                                         cfg.tpu.grad_acc_sum)
                            for name in self.model_names}
-        self._tx = {name: spec.build() for name, spec in self._opt_specs.items()}
+        self._tx = {name: spec.build(self._dp) for name, spec in self._opt_specs.items()}
         self._sigma_cfg = cfg.denoiser.sigma_distribution
         self._loss_cfg = cfg.actor_critic.actor_critic_loss
         self.engine = ImaginationEngine(self.agent.denoiser, self.agent.rew_end_model,
-                                        self.agent.actor_critic, cfg.world_model_env)
+                                        self.agent.actor_critic, cfg.world_model_env,
+                                        dp=self._dp)
         self._denoiser_step = make_denoiser_train_step(self.agent.denoiser,
                                                        self._tx["denoiser"], self._sigma_cfg,
                                                        self._ds_factor)
@@ -244,11 +271,16 @@ class Trainer:
             self.save_checkpoint()
 
         for name, net in self.agent.nets.items():
-            print(f"{count_parameters(net)} parameters in {name}")
-        print(self.train_dataset)
-        print(self.test_dataset)
+            self._print(f"{count_parameters(net)} parameters in {name}")
+        self._print(self.train_dataset)
+        self._print(self.test_dataset)
 
     # -- helpers --------------------------------------------------------------
+
+    def _print(self, *args: Any) -> None:
+        """Rank 0 prints."""
+        if self._main:
+            print(*args)
 
     def _timed(self, key: str, t0: float) -> None:
         """Add the wall seconds since ``t0`` (the card synchronised) to this part's
@@ -271,18 +303,22 @@ class Trainer:
         st = self._imag_state
         obs_f = obs_to_float(st.obs_buffer)
         if d_step != self._quant_step:
+            # the sampler's initial latents at the global batch, this rank's rows
+            b, dp = obs_f.shape[0], self._dp
+            x_init = dp.take(torch.randn((b * dp.world,) + tuple(obs_f.shape[2:]),
+                                         generator=self._gens["rollout"], device=self.device))
             self.engine.sampler.calibrate(obs_f, st.act_buffer, self._int8_sites,
-                                          generator=self._gens["rollout"])
+                                          x_init=x_init, dp=dp)
             self._quant_step = d_step
         if r_step != self._r_quant_step:
             self.agent.rew_end_model.calibrate(obs_f[:, -2:-1], st.act_buffer[:, -2:-1],
-                                               obs_f[:, -1:], self._int8_sites)
+                                               obs_f[:, -1:], self._int8_sites, dp=self._dp)
             self._r_quant_step = r_step
         self._timed("recalibration_s", t0)
         self.calibrations.append(dict(epoch=self.epoch, denoiser_step=d_step,
                                       rew_end_step=r_step))
-        print(f"int8 recalibrated at denoiser step {d_step}, rew/end step {r_step} "
-              f"({time.perf_counter() - t0:.2f} s)")
+        self._print(f"int8 recalibrated at denoiser step {d_step}, rew/end step {r_step} "
+                    f"({time.perf_counter() - t0:.2f} s)")
 
     def _batches(self, name: str):
         """The endless batch iterator of ``name``'s training."""
@@ -297,11 +333,12 @@ class Trainer:
                                    weights, can_sample_beyond_end=(name == "rew_end_model"),
                                    seed=int(self._np_rng.integers(0, 2 ** 31 - 1)))
             if self._device_store is not None:
-                self._batch_sources[name] = StoreBatchIterator(self._device_store, sampler)
+                self._batch_sources[name] = StoreBatchIterator(self._device_store, sampler,
+                                                               self._dp)
             else:
                 self._batch_sources[name] = iter(BatchPrefetcher(
                     self.train_dataset, sampler, workers=cfg.training.num_workers_data_loaders,
-                    device=self.device))
+                    device=self.device, dp=self._dp))
         return self._batch_sources[name]
 
     def _ensure_imagination(self) -> None:
@@ -324,7 +361,9 @@ class Trainer:
                                              store=self._device_store,
                                              policy_feats=cfg.tpu.pool_policy_feats)
         max_consumption = self._loss_cfg.backup_every * c.batch_size + c.batch_size
-        self._pool, _ = self._pool_manager.ensure(self._pool, max_consumption)
+        self._pool, swapped = self._pool_manager.ensure(self._pool, max_consumption)
+        if swapped:
+            self._pool = replicate_pool(self._pool, self._dp)
         if self._imag_state is None:
             self._imag_state, self._pool = self.engine.initial_state(self._pool, c.batch_size)
 
@@ -340,11 +379,14 @@ class Trainer:
             else:
                 self._timing = {"epoch": 0}
                 t0 = time.perf_counter()
-                self.num_epochs_collect, logs = self.collect_initial_dataset()
+                if self._main:
+                    self.num_epochs_collect, logs = self.collect_initial_dataset()
+                    to_log += logs
+                self.num_epochs_collect = self._dp.broadcast_object(self.num_epochs_collect)
+                self._share_train_dataset()
                 self._timed("collect_s", t0)
                 self._timing["collect_steps"] = self.train_dataset.num_steps
                 self.timings.append(self._timing)
-                to_log += logs
 
         num_epochs = self.num_epochs_collect + cfg.training.num_final_epochs
         profile_dir = cfg.tpu.profile_dir
@@ -353,10 +395,10 @@ class Trainer:
             self.epoch += 1
             self._timing = {"epoch": self.epoch}
             start_time = time.time()
-            print(f"\nEpoch {self.epoch} / {num_epochs}\n")
+            self._print(f"\nEpoch {self.epoch} / {num_epochs}\n")
 
             prof = None
-            if profile_dir and self.epoch == 1:
+            if profile_dir and self.epoch == 1 and self._main:
                 acts = [torch.profiler.ProfilerActivity.CPU]
                 if self.device.type == "cuda":
                     acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -371,15 +413,18 @@ class Trainer:
                     self._pool_manager.wait_pending()
                 t0 = time.perf_counter()
                 n0 = self.train_dataset.num_steps
-                to_log += self._train_collector.send(
-                    NumToCollect(steps=cfg.collection.train.steps_per_epoch))
+                if self._main:
+                    to_log += self._train_collector.send(
+                        NumToCollect(steps=cfg.collection.train.steps_per_epoch))
+                self._share_train_dataset()
                 self._timed("collect_s", t0)
                 self._timing["collect_steps"] = self.train_dataset.num_steps - n0
 
             if cfg.training.should:
                 to_log += self.train_agent()
 
-            should_test = cfg.evaluation.should and (self.epoch % cfg.evaluation.every == 0)
+            should_test = (cfg.evaluation.should and self.epoch % cfg.evaluation.every == 0
+                           and self._main)
             if should_test and not self._is_static_dataset:
                 t0 = time.perf_counter()
                 to_log += self.collect_test()
@@ -395,7 +440,8 @@ class Trainer:
                 prof.export_chrome_trace(str(Path(profile_dir) / "epoch_1_trace.json"))
 
             to_log.append({"duration": (time.time() - start_time) / 3600})
-            self.logger.log(to_log, self.epoch)
+            if self.logger is not None:
+                self.logger.log(to_log, self.epoch)
             to_log = []
             t0 = time.perf_counter()
             self.save_checkpoint()
@@ -405,7 +451,7 @@ class Trainer:
                 self._timing.update(pool_builds=pm.builds, pool_swaps=pm.swaps)
             self.timings.append(self._timing)
 
-        if not self._is_static_dataset:
+        if not self._is_static_dataset and self._main:
             t0 = time.perf_counter()
             self._timing = {"epoch": "final"}
             self.logger.log(self.collect_test(final=True), self.epoch)
@@ -413,13 +459,23 @@ class Trainer:
             self.timings.append(self._timing)
         if self._pool_manager is not None:
             self._pool_manager.wait_pending()
+        self._dp.barrier()  # the ranks end with rank 0's final protocol
 
     # -- collection -----------------------------------------------------------
+
+    def _share_train_dataset(self) -> None:
+        """After rank 0 collected: its train dataset's index on every rank (the episode
+        files it wrote are read from the shared run dir)."""
+        if self._dp.world == 1:
+            return
+        sd = self._dp.broadcast_object(self.train_dataset.state_dict() if self._main else None)
+        if not self._main:
+            self.train_dataset.load_state_dict(sd)
 
     def collect_initial_dataset(self):
         """Collect until the minority rewards reach the threshold (at least ``min``, at
         most ``max`` steps). Returns (collecting epochs left, logs)."""
-        print("\nInitial collect\n")
+        self._print("\nInitial collect\n")
         to_log: Logs = []
         c = self._cfg.collection.train
         min_steps, steps_per_epoch = c.first_epoch.min, c.steps_per_epoch
@@ -434,14 +490,14 @@ class Trainer:
             if total_minority_rew >= threshold_rew:
                 break
             if max_steps is not None and num_steps >= max_steps:
-                print("Reached the specified maximum for initial collect")
+                self._print("Reached the specified maximum for initial collect")
                 break
-            print(f"Minority reward: {total_minority_rew}/{threshold_rew} "
-                  "-> Keep collecting\n")
+            self._print(f"Minority reward: {total_minority_rew}/{threshold_rew} "
+                        "-> Keep collecting\n")
             steps = steps_per_epoch
 
-        print("\nSummary of initial collect:")
-        print(f"Num steps: {num_steps} / {c.num_steps_total}")
+        self._print("\nSummary of initial collect:")
+        self._print(f"Num steps: {num_steps} / {c.num_steps_total}")
         remaining = c.num_steps_total - num_steps
         assert remaining % steps_per_epoch == 0
         return remaining // steps_per_epoch, to_log
@@ -455,12 +511,12 @@ class Trainer:
         key_ep_id = f"{td.name}/episode_id"
         to_log = [{k: v + self.num_episodes_test if k == key_ep_id else v
                    for k, v in d.items()} for d in to_log]
-        print(f"\nSummary of {'final' if final else 'test'} collect: "
-              f"{td.num_episodes} episodes ({td.num_steps} steps)")
+        self._print(f"\nSummary of {'final' if final else 'test'} collect: "
+                    f"{td.num_episodes} episodes ({td.num_steps} steps)")
         self.num_episodes_test += episodes
         if final:
             to_log.append(final_protocol_metrics(to_log, episodes))
-            print(to_log[-1])
+            self._print(to_log[-1])
         return to_log
 
     # -- training -------------------------------------------------------------
@@ -503,7 +559,7 @@ class Trainer:
             self._timing["pool_refill_wait_s"] = 0.0
         for _ in range(num_steps):
             self._finish_step_metrics(name, step(), to_log, spec)
-        out = self._materialize_logs(to_log)
+        out = self._materialize_logs(to_log, self._dp)
         process_confusion_matrices_if_any_and_compute_classification_metrics(out)
         return [{f"{name}/train/{k}": v for k, v in d.items()} for d in out]
 
@@ -550,11 +606,12 @@ class Trainer:
         obs, act, rew, end, trunc, _, _, val_boot, _ = self._rl_env_loop.send(
             self._loss_cfg.backup_every)
         ex = self._rl_env_loop.last_extras
-        as_t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        take = self._dp.take  # every rank steps the whole batch of envs alike
+        as_t = lambda x: take(torch.from_numpy(np.ascontiguousarray(x)).to(self.device))
         ts, metrics = self._mf_ac_step(
             self.train_states["actor_critic"], as_t(obs), as_t(act),
             as_t(rew.astype(np.float32)), as_t(end), as_t(trunc), as_t(ex["reset_mask"]),
-            ex["hx0"], ex["cx0"], val_boot)
+            take(ex["hx0"]), take(ex["cx0"]), take(val_boot))
         self.train_states["actor_critic"] = ts
         return metrics
 
@@ -567,9 +624,11 @@ class Trainer:
         to_log.append(metrics)
 
     @staticmethod
-    def _materialize_logs(to_log: Logs) -> Logs:
+    def _materialize_logs(to_log: Logs, dp: Optional[DataParallel] = None) -> Logs:
         """Device tensors to host values: the values of one key (a nested dict's keys
-        apart) are stacked on the device and copied with one transfer."""
+        apart) are stacked on the device and copied with one transfer. With a
+        data-parallel ``dp`` the ranks' shares are summed first, every key but the
+        gradient norm (the same on every rank) by one all_reduce."""
         is_dev = lambda v: isinstance(v, torch.Tensor)
         per_key: Dict[Any, list] = {}
         for d in to_log:
@@ -580,8 +639,11 @@ class Trainer:
                             per_key.setdefault((k, kk), []).append(vv)
                 elif is_dev(v):
                     per_key.setdefault(k, []).append(v)
-        fetched = {k: torch.stack([v.detach().float() for v in vs]).cpu().numpy()
+        stacked = {k: torch.stack([v.detach().float() for v in vs])
                    for k, vs in per_key.items()}
+        if dp is not None:
+            dp.all_reduce_sum_flat([v for k, v in stacked.items() if k not in REPLICATED])
+        fetched = {k: v.cpu().numpy() for k, v in stacked.items()}
         counters = {k: 0 for k in fetched}
 
         def take(key):
@@ -632,9 +694,9 @@ class Trainer:
             logs: Logs = []
             for db in batches:
                 if name == "denoiser":
-                    metrics = self._denoiser_eval(db, generator=self._gens["denoiser"])
+                    metrics = self._denoiser_eval(db, generator=self._gens["eval"])
                 elif name == "upsampler":
-                    metrics = self._upsampler_eval(db, generator=self._gens["upsampler"])
+                    metrics = self._upsampler_eval(db, generator=self._gens["eval"])
                 else:
                     metrics = self._rew_end_eval(db)
                 metrics = dict(metrics)
@@ -698,7 +760,13 @@ class Trainer:
 
     def save_checkpoint(self) -> None:
         """The full state (written to a temporary file, then renamed over the old one), the
-        datasets' state, this epoch's agent snapshot and the import script's info."""
+        datasets' state, this epoch's agent snapshot and the import script's info, by
+        rank 0; then every rank waits for it."""
+        if self._main:
+            self._write_checkpoint()
+        self._dp.barrier()
+
+    def _write_checkpoint(self) -> None:
         tmp = self._path_state_ckpt.with_suffix(".tmp")
         torch.save(self.state_dict(), tmp)
         os.replace(tmp, self._path_state_ckpt)

@@ -28,6 +28,12 @@ dynamics denoiser on its segments' area downsample by f, snapped to the uint8 gr
 (``_two_stage_obs``, what the stateful env's buffers hold), inside the step; the
 upsampler step takes ``Denoiser.loss_upsampler`` of the full-resolution frames, time
 folded into batch, through the same kernels.
+
+Data parallelism (parallel/mesh.py) keeps the JAX package's global semantics: the
+optimizer's ``dp`` sums each step's gradient over the ranks before the clip; a step takes
+its rank's rows of a global batch (``DeviceBatch.mask_global`` beside them) and divides
+its masked sums by the global counts; draws have global shapes, and each rank takes its
+rows. Without a process group every step is the single-card path.
 """
 
 from __future__ import annotations
@@ -44,8 +50,10 @@ from .data.segment import DeviceBatch
 from .envs.world_model_env import ICPool, ImagState, ImaginationEngine, RolloutDraws
 from .models.actor_critic import ActorCritic
 from .models.agent import AdamWClip, configure_opt
-from .models.denoiser import Denoiser, DenoiserDraws, downsample_avg, quantize_to_uint8_grid
+from .models.denoiser import (Denoiser, DenoiserDraws, downsample_avg, draw_loss_noise,
+                              quantize_to_uint8_grid)
 from .models.rew_end_model import RewEndModel
+from .parallel.mesh import DataParallel
 
 
 @dataclass
@@ -95,24 +103,42 @@ class OptimizerSpec:
             return self.lr * min(1.0, step / self.lr_warmup_steps)
         return self.lr
 
-    def build(self) -> AdamWClip:
+    def build(self, dp: Optional[DataParallel] = None) -> AdamWClip:
         return configure_opt(self.lr, self.weight_decay, self.eps, self.max_grad_norm,
-                             self.lr_warmup_steps, self.grad_acc_steps, self.grad_acc_sum)
+                             self.lr_warmup_steps, self.grad_acc_steps, self.grad_acc_sum, dp)
 
 
 def apply_update(tx: AdamWClip, state: TrainState) -> Tuple[TrainState, torch.Tensor]:
-    """One train step's update from the gradients in the parameters' ``.grad``: the
-    chain's update, or under gradient accumulation the micro-step
-    (``AdamWClip.accumulate``). Returns the new state and the global norm of this
-    step's gradient before clipping (on the device), as the JAX package's
-    ``_apply_update`` reports it."""
+    """One train step's update from the gradients in the parameters' ``.grad`` (summed
+    over the ranks first under data parallelism): the chain's update, or under gradient
+    accumulation the micro-step (``AdamWClip.accumulate``). Returns the new state and
+    the global norm of this step's gradient before clipping (on the device), as the JAX
+    package's ``_apply_update`` reports it."""
     if tx.grad_acc_steps == 1:
         grad_norm = tx.update(state.opt_state, state.step)
     else:
-        grad_norm = tx.global_norm(tx.grads(state.opt_state))
-        state.acc = tx.accumulate(state.opt_state, state.acc, state.step)
+        state.acc, grad_norm = tx.accumulate(state.opt_state, state.acc, state.step)
     state.step += 1
     return state, grad_norm
+
+
+def _count_mask(batch: DeviceBatch, dp: DataParallel) -> Optional[torch.Tensor]:
+    """The mask a step's loss counts by where the batch holds one rank's rows of a global
+    batch (None: the batch's own)."""
+    if dp.world > 1 and batch.mask_global is None:
+        raise ValueError("a data-parallel step needs the global batch's mask beside its "
+                         "rows (DeviceBatch.mask_global; parallel.shard_device_batch)")
+    return batch.mask_global
+
+
+def _rank_draws(draws: Optional[DenoiserDraws], windows: int, b: int, hwc: Tuple[int, ...],
+                generator: Optional[torch.Generator], device, dp: DataParallel
+                ) -> DenoiserDraws:
+    """A diffusion loss's draws at the global batch of world * ``b`` (given, else drawn
+    from ``generator``), this rank's rows of them."""
+    if draws is None:
+        draws = draw_loss_noise(windows, b * dp.world, hwc, generator, device)
+    return DenoiserDraws(*(dp.take(x, 1) for x in draws))
 
 
 # ---------------------------------------------------------------------------
@@ -132,18 +158,33 @@ def _two_stage_obs(obs_u8: torch.Tensor, downsample_factor: int) -> torch.Tensor
 def _denoiser_loss(denoiser: Denoiser, sigma_cfg: SigmaDistributionConfig,
                    downsample_factor: int) -> Callable:
     def loss_fn(batch: DeviceBatch, draws: Optional[DenoiserDraws],
-                generator: Optional[torch.Generator]):
-        return denoiser.loss(_two_stage_obs(batch.obs, downsample_factor), batch.act,
-                             batch.mask_padding, sigma_cfg, draws, generator)
+                generator: Optional[torch.Generator], dp: Optional[DataParallel] = None):
+        obs = _two_stage_obs(batch.obs, downsample_factor)
+        count_mask = None
+        if dp is not None:
+            n = denoiser.cfg.inner_model.num_steps_conditioning
+            b, t = obs.shape[:2]
+            draws = _rank_draws(draws, t - n, b, tuple(obs.shape[2:]), generator, obs.device,
+                                dp)
+            count_mask = _count_mask(batch, dp)
+        return denoiser.loss(obs, batch.act, batch.mask_padding, sigma_cfg, draws, generator,
+                             count_mask)
 
     return loss_fn
 
 
 def _upsampler_loss(upsampler: Denoiser, sigma_cfg: SigmaDistributionConfig) -> Callable:
     def loss_fn(batch: DeviceBatch, draws: Optional[DenoiserDraws],
-                generator: Optional[torch.Generator]):
-        return upsampler.loss_upsampler(obs_to_float(batch.obs), batch.mask_padding, sigma_cfg,
-                                        draws, generator)
+                generator: Optional[torch.Generator], dp: Optional[DataParallel] = None):
+        obs = obs_to_float(batch.obs)
+        count_mask = None
+        if dp is not None:  # time folds into batch: a rank's frames are contiguous
+            b, t = obs.shape[:2]
+            draws = _rank_draws(draws, 1, b * t, tuple(obs.shape[2:]), generator, obs.device,
+                                dp)
+            count_mask = _count_mask(batch, dp)
+        return upsampler.loss_upsampler(obs, batch.mask_padding, sigma_cfg, draws, generator,
+                                        count_mask)
 
     return loss_fn
 
@@ -157,7 +198,7 @@ def _make_diffusion_step(model: Denoiser, tx: AdamWClip, loss_fn: Callable,
             raise ValueError(f"{what}: state.net must be the model's inner model")
         state.opt_state.zero_grad(set_to_none=True)
         with torch.enable_grad():
-            loss, metrics = loss_fn(batch, draws, generator)
+            loss, metrics = loss_fn(batch, draws, generator, tx.dp)
             loss.backward()
         state, grad_norm = apply_update(tx, state)
         metrics["grad_norm_before_clip"] = grad_norm
@@ -181,7 +222,9 @@ def make_denoiser_train_step(denoiser: Denoiser, tx: AdamWClip,
     """The denoiser step: ``step(state, batch, draws=None, generator=None) -> (state,
     metrics)``. It takes ``denoiser.loss`` of the uint8 segments in ``batch`` (random
     numbers from ``draws``, else from ``generator``), backpropagates it into
-    ``state.net`` (the denoiser's inner model) and updates it. The metrics
+    ``state.net`` (the denoiser's inner model) and updates it. Under data parallelism
+    (``tx.dp``) ``batch`` is the rank's rows of the global batch (with ``mask_global``)
+    and ``draws`` the global batch's. The metrics
     (``loss_denoising``, ``grad_norm_before_clip``) stay on the device.
     ``downsample_factor`` > 1 (the two-stage world model): the loss takes the frames'
     area downsample (``_two_stage_obs``), made in the step."""
@@ -226,7 +269,7 @@ def make_upsampler_eval_step(upsampler: Denoiser, sigma_cfg: SigmaDistributionCo
 def _rew_end_loss(rew_end_model: RewEndModel, batch: DeviceBatch):
     return rew_end_model.loss(obs_to_float(batch.obs), batch.act, batch.rew, batch.end,
                               batch.mask_padding, obs_to_float(batch.final_obs),
-                              batch.has_final_obs)
+                              batch.has_final_obs, batch.mask_global)
 
 
 def make_rew_end_train_step(rew_end_model: RewEndModel, tx: AdamWClip) -> Callable:
@@ -234,13 +277,15 @@ def make_rew_end_train_step(rew_end_model: RewEndModel, tx: AdamWClip) -> Callab
     ``rew_end_model.loss`` of the segments in ``batch`` (the final-obs swap included),
     backpropagates it into ``state.net`` (the rew/end model's module) and updates it.
     The metrics (``loss_rew``, ``loss_end``, ``loss_total``, ``confusion_matrix``,
-    ``grad_norm_before_clip``) stay on the device."""
+    ``grad_norm_before_clip``) stay on the device. Under data parallelism (``tx.dp``)
+    ``batch`` is the rank's rows of the global batch, with ``mask_global``."""
 
     def step(state: TrainState, batch: DeviceBatch
              ) -> Tuple[TrainState, Dict[str, Any]]:
         if state.net is not rew_end_model.net:
             raise ValueError("make_rew_end_train_step: state.net must be the rew/end model's "
                              "module")
+        _count_mask(batch, tx.dp)
         state.opt_state.zero_grad(set_to_none=True)
         with torch.enable_grad():
             loss, metrics = _rew_end_loss(rew_end_model, batch)
@@ -274,13 +319,16 @@ def ac_rollout_loss(engine: ImaginationEngine, actor_critic: ActorCritic,
     """The actor-critic step's loss (training.py:185-193 of the JAX package): roll
     ``loss_cfg.backup_every`` imagined steps from ``st`` with the policy in the loop and
     take the REINFORCE + value + entropy loss of the trajectory. Where grad is enabled
-    the loss carries the graph into the actor-critic's parameters. Returns (loss,
+    the loss carries the graph into the actor-critic's parameters. Under data
+    parallelism (``engine.dp``) ``st`` holds the rank's env rows, ``draws`` are the
+    global batch's and the loss is the rank's share of the global mean. Returns (loss,
     metrics, st, pool, trajectory)."""
     traj, st, pool = engine.rollout(st, pool, loss_cfg.backup_every, draws=draws,
                                     generator=generator)
     loss, metrics = actor_critic.loss_from_rollout(
         traj["act"], traj["rew"], traj["end"].float(), traj["trunc"].float(),
-        traj["logits_act"], traj["val"], traj["val_bootstrap"], loss_cfg)
+        traj["logits_act"], traj["val"], traj["val_bootstrap"], loss_cfg,
+        traj["act"].numel() * engine.dp.world)
     metrics["imagination_deaths"] = traj["dead"].sum()
     return loss, metrics, st, pool, traj
 
@@ -299,6 +347,9 @@ def make_ac_train_step(engine: ImaginationEngine, actor_critic: ActorCritic, tx:
              ) -> Tuple[TrainState, ImagState, ICPool, Dict[str, torch.Tensor]]:
         if state.net is not actor_critic.net:
             raise ValueError("make_ac_train_step: state.net must be the actor-critic's module")
+        if engine.dp.group is not tx.dp.group:
+            raise ValueError("make_ac_train_step: the engine and the optimizer must be in one "
+                             "process group")
         state.opt_state.zero_grad(set_to_none=True)
         with torch.enable_grad():
             loss, metrics, st, pool, _ = ac_rollout_loss(engine, actor_critic, loss_cfg, st,
@@ -318,12 +369,14 @@ def make_ac_train_step(engine: ImaginationEngine, actor_critic: ActorCritic, tx:
 def model_free_ac_loss(actor_critic: ActorCritic, loss_cfg: ActorCriticLossConfig,
                        obs_u8: torch.Tensor, act: torch.Tensor, rew: torch.Tensor,
                        end: torch.Tensor, trunc: torch.Tensor, reset_mask: torch.Tensor,
-                       hx0: torch.Tensor, cx0: torch.Tensor, val_bootstrap: torch.Tensor):
+                       hx0: torch.Tensor, cx0: torch.Tensor, val_bootstrap: torch.Tensor,
+                       count: Optional[int] = None):
     """The model-free step's loss (training.py:212-253 of the JAX package): the policy
     recomputed over the recorded frames obs_u8 (B, T, H, W, C) uint8 from the carry
     (hx0, cx0), the carry multiplied by 1 - reset_mask[:, t] before step t, and the
-    REINFORCE + value + entropy loss with the recorded ``val_bootstrap``. The trunk
-    encodes all B * T frames in one call. Returns (loss, metrics)."""
+    REINFORCE + value + entropy loss with the recorded ``val_bootstrap``, its means over
+    ``count`` (B * T by default). The trunk encodes all B * T frames in one call.
+    Returns (loss, metrics)."""
     b, t = obs_u8.shape[:2]
     feats = actor_critic.encode(obs_to_float(obs_u8.reshape(b * t, *obs_u8.shape[2:])))
     feats = feats.reshape(b, t, -1)
@@ -337,7 +390,7 @@ def model_free_ac_loss(actor_critic: ActorCritic, loss_cfg: ActorCriticLossConfi
         vals.append(out.val)
     return actor_critic.loss_from_rollout(act, rew, end.float(), trunc.float(),
                                           torch.stack(logits, dim=1), torch.stack(vals, dim=1),
-                                          val_bootstrap, loss_cfg)
+                                          val_bootstrap, loss_cfg, count)
 
 
 def make_model_free_ac_train_step(actor_critic: ActorCritic, tx: AdamWClip,
@@ -346,7 +399,8 @@ def make_model_free_ac_train_step(actor_critic: ActorCritic, tx: AdamWClip,
     reset_mask, hx0, cx0, val_bootstrap) -> (state, metrics)`` on tensors the env loop
     recorded (all (B, T) but obs_u8 (B, T, H, W, C) and the carry (B, lstm_dim)). It
     takes ``model_free_ac_loss``, backpropagates it into ``state.net`` (the
-    actor-critic's module) and updates it; the metrics stay on the device."""
+    actor-critic's module) and updates it; the metrics stay on the device. Under data
+    parallelism (``tx.dp``) the tensors are the rank's rows of the global batch."""
 
     def step(state: TrainState, obs_u8: torch.Tensor, act: torch.Tensor, rew: torch.Tensor,
              end: torch.Tensor, trunc: torch.Tensor, reset_mask: torch.Tensor,
@@ -358,7 +412,8 @@ def make_model_free_ac_train_step(actor_critic: ActorCritic, tx: AdamWClip,
         state.opt_state.zero_grad(set_to_none=True)
         with torch.enable_grad():
             loss, metrics = model_free_ac_loss(actor_critic, loss_cfg, obs_u8, act, rew, end,
-                                               trunc, reset_mask, hx0, cx0, val_bootstrap)
+                                               trunc, reset_mask, hx0, cx0, val_bootstrap,
+                                               act.numel() * tx.dp.world)
             loss.backward()
         state, grad_norm = apply_update(tx, state)
         metrics["grad_norm_before_clip"] = grad_norm

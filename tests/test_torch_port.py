@@ -188,7 +188,8 @@ def test_port_imports_no_jax_and_no_yaml():
                "diamond_tpu_torch.coroutines", "diamond_tpu_torch.coroutines.env_loop",
                "diamond_tpu_torch.coroutines.collector", "diamond_tpu_torch.data.prefetch",
                "diamond_tpu_torch.checkpoint", "diamond_tpu_torch.trainer",
-               "diamond_tpu_torch.main"]
+               "diamond_tpu_torch.main", "diamond_tpu_torch.parallel",
+               "diamond_tpu_torch.parallel.mesh", "diamond_tpu_torch.parallel.multihost"]
     # torch itself may import tqdm where it is installed: the forbidden modules it loaded
     # are dropped and their import blocked before the port's modules are imported
     code = ("import importlib, importlib.abc, sys\n"
