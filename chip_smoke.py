@@ -24,8 +24,9 @@ result line):
      read (K1-K3 each > 0, K4/K5 none); one rollout on the other pool branch (features
      encoded per reset); one under torch.profiler (device busy and idle share);
   5. calibration of the static int8 path on the live buffers as bench.py does
-     (RuntimeConfig.int8_sites), then the int8 path the same way (K4, K5 each > 0), its
-     other pool branch and its profile; then both paths timed in turns (bf16, int8,
+     (RuntimeConfig.int8_sites), then the int8 path the same way (K4, K5, K6 each > 0), its
+     other pool branch and its profile (no torch._int_mm, no more round or clamp ops than
+     the bf16 rollout's); then both paths timed in turns (bf16, int8,
      int8, bf16, three rounds), and the host-device synchronisations of one rollout of
      each;
   6. one full-size world-model step int8 against bf16 from the same state and x_init:
@@ -129,7 +130,10 @@ result line):
      plain ones;
      the share of the bound; for the 3x3 convs also the ratio to cuDNN's bf16 conv and
      the blocks of the launch plan, for the norms the cluster size and blocks of theirs;
-     K4's per-sample epilogue at the int8 path's norm shapes;
+     K4's per-sample epilogue at the int8 path's norm shapes; K6 also against the separate
+     ops it replaced and torch._int_mm on the same codes; K7, on no path, at the
+     denoiser's 3x3 shapes (DRIVEN_ONLY): its codes and scale, and the conv through K5,
+     bit for bit;
   8. the trajectories' sanity, and small full-width rollouts in f32 on the card against
      the same rollouts through the plain versions on the CPU, bf16 path and int8 path;
      the actor-critic's gradient (trunk and heads) on the same frames and carries, card
@@ -192,6 +196,14 @@ KERNELS = {
     "conv3x3_int8": ("diamond_tpu_torch/kernels/csrc/conv3x3_q8.cu",
                      "diamond_tpu/ops/quant.py:161", ("int8", "trainer", "ts_play_int8",
                                                       "play_default_int8", "play_csgo_int8")),
+    # the int8 sites' products: 1x1 convs, dense layers, LSTM gates (XLA on the TPU)
+    "matmul_int8": ("diamond_tpu_torch/kernels/csrc/matmul_q8.cu",
+                    "diamond_tpu/ops/quant.py:190", ("int8", "trainer", "ts_play_int8",
+                                                     "play_default_int8", "play_csgo_int8")),
+    # the activation side of the dynamic-scale int8 conv (quant.conv3x3_q8, XLA on the
+    # TPU), on no path: phase 7 alone drives it, at DRIVEN_ONLY's signatures
+    "absmax_quantize_q8": ("diamond_tpu_torch/kernels/csrc/quantize_q8.cu",
+                           "diamond_tpu/ops/quant.py:212", ()),
     # the backward of K2's custom_vjp (the XLA VJP of _gn_silu_ref on the TPU)
     "groupnorm_silu_bwd": ("diamond_tpu_torch/kernels/csrc/gn_bwd.cu",
                            "diamond_tpu/ops/fused_norms.py:155",
@@ -218,6 +230,19 @@ KERNELS = {
                         "ts_trainer")),
 }
 BACKWARD = ("groupnorm_silu_bwd", "conv3x3_dgrad", "conv3x3_wgrad")
+# the kernels of the int8 path, none of which the bf16 paths may launch
+INT8_KERNELS = ("adagn_silu_q8", "groupnorm_silu_q8", "conv3x3_int8", "matmul_int8")
+# a kernel on no path: the signatures phase 7 drives it at, one call each; K7 at the
+# denoiser's 3x3 shapes (x's shape, dtype, Cout, stride): a 64x64 64 -> 64 conv, the
+# Downsample (stride 2) and conv_in (Cin 15: 4 conditioning frames and the noisy one)
+DRIVEN_ONLY = {"absmax_quantize_q8": [((32, 64, 64, 64), "torch.bfloat16", 64, 1),
+                                      ((32, 64, 64, 64), "torch.bfloat16", 64, 2),
+                                      ((32, 64, 64, 15), "torch.bfloat16", 64, 1)]}
+# The int8 rollout's kernel launch calls and device busy ms (NVIDIA H100 80GB HBM3,
+# 700 W) when its matmul sites still quantized, multiplied (torch._int_mm, or float64
+# where it refuses the shape), rescaled, cast and added the bias in separate ops: printed
+# beside the count of this run
+INT8_ROLLOUT_BEFORE = (32918, 215.1)
 # the backward kernels, whose sums run in a fixed order: two calls give the same bits
 REPEATS = ("groupnorm_silu_bwd", "conv3x3_wgrad", "adagn_silu_bwd", "conv3x3_dgrad_s2")
 # the bias gradient, summed in the weight-gradient kernel: within DB_TOL of max(1, max
@@ -235,8 +260,9 @@ DENOISER_LAUNCH_CALLS_BEFORE = 2882
 AC_LAUNCH_CALLS_BEFORE = 35869
 # max |kernel - plain| allowed, as a share of max(1, max |plain|): f32 sums in another
 # order (TF32 off on both sides); bf16 outputs are rounded once on both sides and may
-# differ by one bf16 ulp (1/128 relative), so 2 ulps are allowed. The int8 conv is exact
-# (int8 sums, then the same IEEE f32 steps). The quantizing norms are held in codes:
+# differ by one bf16 ulp (1/128 relative), so 2 ulps are allowed. The int8 conv and
+# product are exact (int8 sums, then the same IEEE f32 steps), and so are the dynamic
+# conv's codes, scale and output. The quantizing norms are held in codes:
 # at most 1 apart, and only where the value lies at a rounding boundary (every element
 # that differs within one unit of its code boundary: ops.static_code_flips and
 # per_sample_code_flips), in at most CODE_SHARE of the elements, or in one element where
@@ -245,11 +271,13 @@ AC_LAUNCH_CALLS_BEFORE = 35869
 # and dbias 1e-3 (sums over up to 131k terms in another order), bf16 all 1/64; K1's the
 # same, its FiLM gradient summed per sample over up to 4,096 pixels.
 TOL = {"float32": {"adagn_silu": 1e-4, "groupnorm_silu": 1e-4, "conv3x3": 1e-3,
-                   "conv3x3_int8": 0.0, "groupnorm_silu_bwd": (1e-4, 1e-3, 1e-3),
+                   "conv3x3_int8": 0.0, "matmul_int8": 0.0, "absmax_quantize_q8": 0.0,
+                   "groupnorm_silu_bwd": (1e-4, 1e-3, 1e-3),
                    "adagn_silu_bwd": (1e-4, 1e-3), "conv3x3_dgrad": 1e-3,
                    "conv3x3_dgrad_s2": 1e-3, "conv3x3_wgrad": 1e-3},
        "bfloat16": {"adagn_silu": 1 / 64, "groupnorm_silu": 1 / 64, "conv3x3": 1 / 64,
-                    "conv3x3_int8": 0.0, "groupnorm_silu_bwd": (1 / 64,) * 3,
+                    "conv3x3_int8": 0.0, "matmul_int8": 0.0, "absmax_quantize_q8": 0.0,
+                    "groupnorm_silu_bwd": (1 / 64,) * 3,
                     "adagn_silu_bwd": (1 / 64,) * 2, "conv3x3_dgrad": 1 / 64,
                     "conv3x3_dgrad_s2": 1 / 64, "conv3x3_wgrad": 1 / 64}}
 CODE_SHARE = 1e-3
@@ -347,7 +375,47 @@ def library_call(name, args):
                                                    (dy.shape[-1], x.shape[-1], 3, 3),
                                                    dy.permute(0, 3, 1, 2), stride=stride,
                                                    padding=1)
+    if name == "matmul_int8":  # the int8 product alone, on codes made beforehand
+        xq = int8_codes(args[0], args[3]).reshape(-1, args[0].shape[-1])
+        if int_mm_takes(*xq.shape, args[1].shape[1]):
+            return lambda: torch._int_mm(xq, args[1])
     return None
+
+
+def int_mm_takes(m: int, k: int, n: int) -> bool:
+    """The shapes torch._int_mm takes on the card: more than 16 rows, K and N multiples
+    of 8."""
+    return m > 16 and k % 8 == 0 and n % 8 == 0
+
+
+def int8_codes(x, act_max):
+    """x's int8 codes with the static scales of act_max (x itself where it is codes)."""
+    import torch
+    from diamond_tpu_torch import ops
+
+    return x if x.dtype == torch.int8 else ops.quantize_static(x, act_max)
+
+
+def old_matmul_route(x, w_q, w_scale, act_max, bias, out_dtype):
+    """An int8 matmul site as it ran before K6: the quantize, torch._int_mm (float64 where
+    it refuses the shape), the rescale, the cast and the bias in separate ops (a
+    yardstick of what K6 replaced, timed in phase 7)."""
+    import torch
+
+    xq = int8_codes(x, act_max).reshape(-1, x.shape[-1])
+    (m, k), n = xq.shape, w_q.shape[1]
+    acc = torch._int_mm(xq, w_q) if int_mm_takes(m, k, n) else xq.double() @ w_q.double()
+    y = (acc.float() * w_scale).reshape(*x.shape[:-1], n).to(out_dtype)
+    return y if bias is None else y + bias.to(out_dtype)
+
+
+def weight_codes(w):
+    """The dynamic conv's per-output-channel weight codes and scales, as
+    ``fused_q8.conv3x3_qtensor`` makes them."""
+    import torch
+
+    sw = w.abs().amax(dim=(0, 1, 2)).clamp_min(1e-8) / torch.full((), 127.0, device=w.device)
+    return torch.clamp(torch.round(w / sw), -127, 127).to(torch.int8), sw
 
 
 def gn_autograd_ms(name, args) -> float:
@@ -430,6 +498,17 @@ def bound(name, args):
         ops = n * (4 + 4 + 1 + 4)
         byts = n * es + 4 * b * c * 4 + n + b * 4
         kind = "f32_simt"
+    elif name == "matmul_int8":  # x, w_q, w_scale, act_max, bias, out_dtype[, w_k]
+        m, cout = n // c, args[1].shape[1]  # -> (..., N); w_k, w_q's copy, is not counted
+        ops = 2 * m * cout * c
+        byts = (n * es + m * cout * (2 if args[5] == torch.bfloat16 else 4)
+                + sum(a.numel() * a.element_size() for a in args[1:5]
+                      if isinstance(a, torch.Tensor)))
+        kind = "int8_tensor"
+    elif name == "absmax_quantize_q8":  # x -> int8 codes and the (B, 1) scale: max |x| 2,
+        ops = n * (2 + 4)               # the quantize 4 per element
+        byts = n * es + n + b * 4
+        kind = "f32_simt"
     else:  # conv3x3 (x, w, bias, stride); conv3x3_int8 (x, w_q, w_scale, act_max, bias,
         #                                              stride, out_dtype, sample_scale)
         q8 = name == "conv3x3_int8"
@@ -438,8 +517,8 @@ def bound(name, args):
         m = b * ((x.shape[1] - 1) // stride + 1) * ((x.shape[2] - 1) // stride + 1)
         ops = 2 * m * cout * 9 * cin
         out_es = (2 if args[6] == torch.bfloat16 else 4) if q8 else es
-        small = [a for a in (args[2:5] + args[7:] if q8 else args[2:3])
-                 if isinstance(a, torch.Tensor)]  # scales, bias, act_max
+        small = [a for a in (args[2:5] + args[7:8] if q8 else args[2:3])
+                 if isinstance(a, torch.Tensor)]  # scales, bias, act_max; not w_k
         byts = (n * es + w.numel() * w.element_size() + m * cout * out_es
                 + sum(a.numel() * a.element_size() for a in small))
         kind = "int8_tensor" if q8 else "bf16_tensor"
@@ -515,6 +594,25 @@ def make_inputs(name, sig, dtype, gen):
         # the K-major weight copy last, made once as the int8 sites make it at install
         return (x, wq, ws, am, 0.1 * rnd(cout) if has_bias else None, stride, dtype, ss,
                 ops.kmajor_weights(wq))
+    if name == "matmul_int8":  # x's shape and dtype, N, bias, out dtype; as the path ran
+        shape, x_dtype, cout, has_bias, out_dtype = sig  # it, or x and y in dtype
+        x_dt = getattr(torch, x_dtype.split(".")[1]) if out_dtype == str(dtype) else dtype
+        if x_dt == torch.int8:
+            x, am = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                  dtype=torch.int8), None
+        else:
+            x = rnd(*shape).to(x_dt)
+            am = x.float().abs().reshape(-1, shape[-1]).amax(dim=0) * 0.95
+        wq = torch.randint(-127, 128, (shape[-1], cout), generator=gen, device=dev,
+                           dtype=torch.int8)
+        ws = torch.rand(cout, generator=gen, device=dev) * 1e-3 + 1e-4
+        # the K-major weight copy last, made once as the int8 sites make it at install
+        return (x, wq, ws, am, 0.1 * rnd(cout) if has_bias else None, dtype,
+                ops.kmajor_2d(wq))
+    if name == "absmax_quantize_q8":  # x's shape, Cout and stride of the conv it feeds:
+        shape, _, cout, stride = sig  # x, and the conv's weight and stride
+        w = rnd(3, 3, shape[-1], cout) / (9 * shape[-1]) ** 0.5
+        return ((3 * rnd(*shape)).to(dtype), w, stride)
     shape, _, *silu = sig
     c = shape[-1]
     x = (2 * rnd(*shape) + 0.5).to(dtype)
@@ -554,8 +652,19 @@ def static_flips(name, y, ref, args) -> tuple:
 
 
 def plain_args(name, args):
-    """The arguments of the plain version: K5's take no K-major weight copy."""
-    return args[:8] if name == "conv3x3_int8" else args
+    """The arguments of the plain version: K5's and K6's take no K-major weight copy."""
+    return args[:8] if name == "conv3x3_int8" else args[:6] if name == "matmul_int8" else args
+
+
+def kernel_fns(name):
+    """(kernel, plain) of a KERNELS entry, both called with make_inputs' arguments: K7's
+    quantize takes x alone (the conv's weight and stride ride along for compare_one)."""
+    from diamond_tpu_torch import ops
+
+    if name == "absmax_quantize_q8":
+        return (lambda x, w, s: ops.absmax_quantize_q8(x),
+                lambda x, w, s: ops.absmax_quantize_q8_plain(x))
+    return getattr(ops, name), getattr(ops, name + "_plain")
 
 
 def norm_launch(name, args) -> tuple:
@@ -616,6 +725,7 @@ def compare_one(name, kernel, plain, args, dt_name):
     too (``compare_one.moments_err``)."""
     import torch
     from diamond_tpu_torch import ops
+    from diamond_tpu_torch.ops import quant
 
     y, ref = kernel(*args), plain(*plain_args(name, args))
     torch.cuda.synchronize()
@@ -654,6 +764,18 @@ def compare_one(name, kernel, plain, args, dt_name):
         check(bool(torch.isfinite(db).all()) and e_db <= DB_TOL * scale,
               f"{name} {dt_name} db: max abs err {e_db} > {DB_TOL} * {scale}")
         compare_one.db_err = e_db
+    if name == "absmax_quantize_q8":  # codes, sx, then the conv through K5, all exact
+        x, w, stride = args
+        check(torch.equal(y.q, ref.q) and torch.equal(y.scale, ref.scale),
+              f"{name} {dt_name}: codes or scale differ from the plain version's")
+        check(bool((ref.scale == ref.scale[0]).all()), f"{name}: the scale is not one sx")
+        wq, sw = weight_codes(w)
+        conv = quant.conv3x3_q8(x, w, stride)
+        conv_ref = ops.conv3x3_int8_plain(ref.q, wq, sw, stride=stride, sample_scale=ref.scale)
+        torch.cuda.synchronize()
+        check(torch.equal(conv, conv_ref), f"quant.conv3x3_q8 {dt_name}: the conv differs "
+              "from the plain conv of the plain codes")
+        return 0.0
     if name in ("adagn_silu_q8", "groupnorm_silu_q8"):
         # the static epilogue equals quantize(K1/K2 kernel output) code for code
         base = ops.adagn_silu if name == "adagn_silu_q8" else ops.groupnorm_silu
@@ -676,7 +798,8 @@ compare_one.tol_share = None  # the norm backwards' largest error as a share of 
 def _zero_totals() -> dict:
     return dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0, bound_ms=0.0, library_ms=0.0,
                 ms_where_library=0.0, cudnn_bf16_ms=0.0, per_sample_ms=0.0,
-                per_sample_plain_ms=0.0, has_library=False)
+                per_sample_plain_ms=0.0, old_route_ms=0.0, conv_ms=0.0, whole_ms=0.0,
+                has_library=False)
 
 
 def compare_kernels(shapes, launches, runs):
@@ -685,25 +808,30 @@ def compare_kernels(shapes, launches, runs):
     yardstick; times and bounds per run of each path (a rollout, or a train step:
     ``runs`` holds the runs each path's counts were taken over) weight each signature
     by its calls there. A kernel's entry reports its first path, and every path in
-    ``by_path``. K4's per-sample epilogue runs at the int8 path's AdaGN shapes. Returns
-    the JSON rows and the per-signature details."""
+    ``by_path``. K4's per-sample epilogue runs at the int8 path's AdaGN shapes. A kernel
+    on no path runs at its DRIVEN_ONLY signatures, one call each, and reports 0 launches.
+    Returns the JSON rows and the per-signature details."""
     import torch
     from diamond_tpu_torch import ops
+    from diamond_tpu_torch.ops import quant
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows, details = [], []
     for name, (source, replaces, paths) in KERNELS.items():
-        kernel, plain = getattr(ops, name), getattr(ops, name + "_plain")
+        kernel, plain = kernel_fns(name)
         err = {"float32": 0.0, "bfloat16": 0.0}
-        tots = {p: _zero_totals() for p in paths}
+        tots = {p: _zero_totals() for p in paths or ("kernel",)}
         calls = {}  # signature -> {path: calls per run}
         for p in paths:
             for sig, count in shapes[p][name].items():
                 calls.setdefault(sig, {})[p] = count / runs[p]
+        for sig in DRIVEN_ONLY.get(name, ()):
+            calls[sig] = {"kernel": 1.0}
         for sig, per_run in sorted(calls.items(), key=lambda kv: str(kv[0])):
-            run_dtype = sig[-1] if name.startswith("conv") else sig[1]  # as the path ran it
+            # the dtype as the path ran it: the output's for the convs and the product
+            run_dtype = sig[-1] if name.startswith("conv") or name == "matmul_int8" else sig[1]
             for dt_name in ("bfloat16", "float32"):
                 as_run = run_dtype == f"torch.{dt_name}"
                 args = make_inputs(name, sig, getattr(torch, dt_name), gen)
@@ -749,10 +877,28 @@ def compare_kernels(shapes, launches, runs):
                         wb = wq.to(torch.bfloat16)
                         row["cudnn_bf16_ms"] = cuda_time_ms(
                             lambda: cudnn_bf16_conv(xb, wb, bias, stride))
+                    if name == "matmul_int8":  # the separate ops K6 replaced
+                        row["old_route_ms"] = cuda_time_ms(
+                            lambda: old_matmul_route(*plain_args(name, args)))
+                    if name == "absmax_quantize_q8":  # K5 on the codes; the whole conv
+                        x, w, stride = args
+                        qt, (wq, sw) = ops.absmax_quantize_q8(x), weight_codes(w)
+                        wk = ops.kmajor_weights(wq)
+                        row["conv_ms"] = cuda_time_ms(lambda: ops.conv3x3_int8(
+                            qt.q, wq, sw, stride=stride, sample_scale=qt.scale, w_k=wk))
+                        row["whole_ms"] = cuda_time_ms(lambda: quant.conv3x3_q8(x, w, stride))
                     row["bound_share"] = row["bound_ms"] / t_k
                     if name.startswith("conv"):  # ratio to cuDNN, blocks
                         row["vs_library"] = t_k / row.get("library_ms", row.get("cudnn_bf16_ms"))
                         row["blocks"] = conv_blocks(name, args)
+                    elif name == "matmul_int8":  # 64 x 64 tiles of y; ratio to _int_mm
+                        m, n = args[0].numel() // args[0].shape[-1], args[1].shape[1]
+                        row["blocks"] = -(-m // 64) * -(-n // 64)
+                        if "library_ms" in row:
+                            row["vs_library"] = t_k / row["library_ms"]
+                    elif name == "absmax_quantize_q8":  # each of its two grids
+                        row["blocks"] = min(1024, -(-args[0].numel() // (
+                            4 * 256 * (16 // args[0].element_size()))))
                     else:  # the norm's cluster size and blocks
                         row["cluster"], row["blocks"] = norm_launch(name, args)
                 if name == "adagn_silu_q8":  # K4's per-sample epilogue at the same shapes
@@ -780,6 +926,9 @@ def compare_kernels(shapes, launches, runs):
                         for k, v in (("ms", t_k), ("plain_ms", t_p), ("bytes_ms", row["bytes_ms"]),
                                      ("ops_ms", row["ops_ms"]), ("bound_ms", row["bound_ms"]),
                                      ("cudnn_bf16_ms", row.get("cudnn_bf16_ms", 0.0)),
+                                     ("old_route_ms", row.get("old_route_ms", 0.0)),
+                                     ("conv_ms", row.get("conv_ms", 0.0)),
+                                     ("whole_ms", row.get("whole_ms", 0.0)),
                                      ("per_sample_ms", row.get("per_sample_ms", 0.0)),
                                      ("per_sample_plain_ms", row.get("per_sample_plain_ms", 0.0))):
                             tot[k] += w * v
@@ -790,8 +939,8 @@ def compare_kernels(shapes, launches, runs):
                 details.append(row)
                 log(f"[compare] {name} {sig} {dt_name}: err {e:.3g} kernel {t_k:.4f} ms plain "
                     f"{t_p:.4f} ms" + "".join(f" {k} {row[k]:.4f}" for k in (
-                        "bound_ms", "library_ms", "cudnn_bf16_ms", "per_sample_ms",
-                        "vs_library", "bound_share") if k in row)
+                        "bound_ms", "library_ms", "cudnn_bf16_ms", "old_route_ms", "conv_ms",
+                        "whole_ms", "per_sample_ms", "vs_library", "bound_share") if k in row)
                     + (f" db_err {row['db_err']:.3g}" if "db_err" in row else "")
                     + (f" moments_err {row['moments_err']:.3g}" if "moments_err" in row else "")
                     + (f" tol_share {row['tol_share']:.3g}" if "tol_share" in row else "")
@@ -801,24 +950,34 @@ def compare_kernels(shapes, launches, runs):
                            bound_ms=t["bound_ms"],
                            library_ms=t["library_ms"] if t["has_library"] else None,
                            shapes=len(shapes[p][name]))
-                   for p, t in tots.items()}
+                   for p, t in tots.items() if p in paths}
         for p in by_path:  # the two-stage and play paths' shapes, each with its launches
             if p.startswith(("ts_", "play_")):
                 by_path[p]["shape_launches"] = {str(sig): c for sig, c in shapes[p][name].items()}
-        path, tot = paths[0], tots[paths[0]]
+        path = paths[0] if paths else None
+        tot = tots[path or "kernel"]
         entry = dict(name=name, route="cuda", source=source, replaces=replaces,
-                     launches=launches[path][name], max_abs_err=err["bfloat16"],
+                     launches=launches[path][name] if path else 0,
+                     max_abs_err=err["bfloat16"],
                      ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
                      bound_by="bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
                      library_ms=tot["library_ms"] if tot["has_library"] else None,
                      max_abs_err_f32=err["float32"], path=path,
                      launches_by_path={p: launches[p][name] for p in launches},
-                     per=PER_RUN[path], shapes=len(shapes[path][name]), by_path=by_path)
+                     per=PER_RUN[path] if path else "call at each of its shapes, summed",
+                     shapes=len(shapes[path][name]) if path else len(DRIVEN_ONLY[name]),
+                     by_path=by_path)
         if tot["has_library"] and name == "groupnorm_silu":
             entry["library_covers"] = "silu=False calls only"
             entry["ms_where_library"] = tot["ms_where_library"]
         if name == "conv3x3_int8":
             entry["cudnn_bf16_ms"] = tot["cudnn_bf16_ms"]  # a bf16 conv, not the int8 one
+        if name == "matmul_int8":  # torch._int_mm where it takes the shape; the old route
+            entry["library_covers"] = "shapes torch._int_mm takes (the int8 product alone)"
+            entry["ms_where_library"] = tot["ms_where_library"]
+            entry["old_route_ms"] = tot["old_route_ms"]
+        if name == "absmax_quantize_q8":  # K5 on its codes, and quant.conv3x3_q8 whole
+            entry["conv_ms"], entry["whole_ms"] = tot["conv_ms"], tot["whole_ms"]
         if name == "adagn_silu_q8":
             entry["per_sample_epilogue"] = dict(ms=tot["per_sample_ms"],
                                                 plain_ms=tot["per_sample_plain_ms"])
@@ -943,10 +1102,83 @@ def profile_run(fn, label, what) -> dict:
         log(f"[profile]   not summed: {k}, a span of {v:.2f} ms over kernels counted above")
     for k, v in functions.items():
         log(f"[profile]   {k}: {v['calls']} calls, {v['cpu_us']:.1f} µs of CPU per call")
+    aten = {e.key: e.count for e in events
+            if e.device_type == DeviceType.CPU and e.key.startswith("aten::")}
     return dict(busy_ms=busy_ms, wall_ms=wall_ms, launches=launches, functions=functions,
-                annotation_spans_ms=spans, conv_bwd_ops=dict(conv_bwd_ops),
+                aten=aten, annotation_spans_ms=spans, conv_bwd_ops=dict(conv_bwd_ops),
                 norm_bwd_ops=norm_bwd_ops,
                 top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in kernels[:12]])
+
+
+def int8_sites_ops(results: dict, smi: str) -> None:
+    """The profiled int8 rollout against the bf16 one: its matmul sites run through K6
+    alone, so no torch._int_mm, and no more round or clamp ops than the bf16 rollout
+    (whose only ones snap frames to the uint8 grid); its launch calls and device busy
+    beside INT8_ROLLOUT_BEFORE."""
+    p8, p16 = results["int8"]["profile"], results["bf16"]["profile"]
+    a8, a16 = p8["aten"], p16["aten"]
+    check(a8.get("aten::_int_mm", 0) == 0, "the int8 rollout ran torch._int_mm")
+    for op in ("aten::round", "aten::clamp"):
+        check(a8.get(op, 0) == a16.get(op, 0), f"the int8 rollout ran {a8.get(op, 0)} {op}, "
+              f"the bf16 rollout {a16.get(op, 0)}: an int8 site quantized outside its kernel")
+    k6 = results["int8"]["launches"]["matmul_int8"] / (1 + TIMED_ROLLOUTS)
+    before, busy_before = INT8_ROLLOUT_BEFORE
+    log(f"[profile]   int8 rollout: {p8['launches']} kernel launch calls ({before} with the "
+        f"matmul sites' separate ops: {before - p8['launches']} fewer over {k6:g} K6 calls, "
+        f"{(before - p8['launches']) / k6:.1f} a call), device busy {p8['busy_ms']:.1f} ms "
+        f"({busy_before} ms before); no aten::_int_mm; aten::round {a8.get('aten::round', 0)}"
+        f" and aten::clamp {a8.get('aten::clamp', 0)}, as in the bf16 rollout; on {smi}")
+
+
+def int8_site_host_costs(smi: str) -> dict:
+    """Host µs per call of an int8 1x1 site (K6) beside the same site in bf16, K6's
+    wrapper alone, the separate ops K6 replaced and torch._int_mm alone, at the rollout's
+    8x8 up-path projection (32 x 8 x 8 x 128 -> 64) and the csgo play's 4x4 one (1 x 4 x 4
+    x 128 -> 64), where the device's work is a few µs: what a site costs the host, which
+    bounds the rollouts that leave the device idle. A figure, not a check."""
+    import torch
+    from diamond_tpu_torch import ops
+    from diamond_tpu_torch.models.blocks import Conv1x1
+    from diamond_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(SEED + 7)
+    out = {}
+    for shape in ((32, 8, 8, 128), (1, 4, 4, 128)):
+        k, n = shape[-1], 64
+        x = torch.randn(shape, generator=g).to("cuda", torch.bfloat16)
+        site, plain_site = Conv1x1(k, n, torch.bfloat16), Conv1x1(k, n, torch.bfloat16)
+        for m in (site, plain_site):
+            with torch.no_grad():
+                m.kernel.copy_(torch.randn(m.kernel.shape, generator=g) / k ** 0.5)
+                m.bias.copy_(torch.randn(n, generator=g) / 10)
+            m.cuda()
+        am = x.float().abs().reshape(-1, k).amax(dim=0)
+        quant.install(site, dict(zip(("w_q", "w_scale"),
+                                     quant.fold_quantize_weight(site.kernel[0, 0], am)),
+                                 act_scale=am))
+        args = (x, site.w_q, site.w_scale, am, site.bias, torch.bfloat16)
+        xq = ops.quantize_static(x, am).reshape(-1, k)
+        pieces = {"int8 site (K6)": lambda: site(x),
+                  "bf16 site": lambda: plain_site(x),
+                  "matmul_int8 alone": lambda: ops.matmul_int8(*args, w_k=site.w_k),
+                  "the separate ops K6 replaced": lambda: old_matmul_route(*args)}
+        if int_mm_takes(*xq.shape, n):
+            pieces["torch._int_mm alone"] = lambda: torch._int_mm(xq, site.w_q)
+        res = {}
+        with quant.int8_scope(True):
+            for key, fn in pieces.items():
+                for _ in range(20):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    fn()
+                res[key] = (time.perf_counter() - t0) / 200 * 1e6
+                torch.cuda.synchronize()
+        out[str(shape)] = res
+        log(f"[host] int8 1x1 site {shape} -> {n}, CPU µs per call: "
+            + ", ".join(f"{key} {v:.1f}" for key, v in res.items()) + f"; on {smi}")
+    return out
 
 
 def log_unprofiled_idle(profile: dict, step_ms: float, what: str) -> None:
@@ -2134,8 +2366,9 @@ def trainer_phase(smi):
     log(f"[trainer] final collect {fc['test_collect_s']:.2f} s; "
         f"final protocol: {protocol}")
     log(f"[launches] trainer, over the run: {launches}")
-    for name in KERNELS:
-        check(launches[name] > 0, f"{name} was not launched during the trainer's run")
+    for name, (_, _, paths) in KERNELS.items():
+        if "trainer" in paths:
+            check(launches[name] > 0, f"{name} was not launched during the trainer's run")
     check(trainer.epoch == 3, f"the trainer ran {trainer.epoch} epochs, not 3")
     check(final["final_num_episodes"] == 4, "the final protocol did not collect 4 episodes")
 
@@ -2383,8 +2616,7 @@ def ts_play_phase(smi):
         for label in TS_PLAY:
             if label in paths:
                 check(launches[label][name] > 0, f"{name} was not launched on {label}")
-    check(all(launches["ts_play_bf16"][n] == 0 for n in ("adagn_silu_q8", "groupnorm_silu_q8",
-                                                         "conv3x3_int8")),
+    check(all(launches["ts_play_bf16"][n] == 0 for n in INT8_KERNELS),
           "an int8 kernel ran on the two-stage bf16 play path")
     for label in TS_PLAY:
         set_int8(nets, colls, label.endswith("int8"))
@@ -2928,8 +3160,7 @@ def play_agent(name, overrides, root: Path, smi: str):
         for k, (_, _, paths) in KERNELS.items():
             if label(p) in paths:
                 check(launches[label(p)][k] > 0, f"{k} was not launched on {label(p)}")
-    check(all(launches[label("bf16")][k] == 0 for k in ("adagn_silu_q8", "groupnorm_silu_q8",
-                                                        "conv3x3_int8")),
+    check(all(launches[label("bf16")][k] == 0 for k in INT8_KERNELS),
           f"an int8 kernel ran on {label('bf16')}")
     for p in PLAY_PRECISIONS:
         set_int8(nets, colls, p == "int8")
@@ -3359,7 +3590,8 @@ def dp_phase(smi, cfg=None):
     finally:
         dist.destroy_process_group()
     for name, n in launches.items():
-        check(n > 0, f"[dp] NCCL world size 1: {name} was not launched")
+        if KERNELS[name][2]:  # every kernel on a path
+            check(n > 0, f"[dp] NCCL world size 1: {name} was not launched")
     syncs = {name: measured[name]["syncs"] for name in DP_LOSS_KEY}
     nccl = {name: measured[name]["nccl"] for name in DP_LOSS_KEY}
     reduced = {name: got[name]["reduced_bytes"] for name in DP_LOSS_KEY}
@@ -3408,7 +3640,8 @@ def dp_phase(smi, cfg=None):
     diffs = dp_compare(ranks[0], ref, f"[dp] (b) {DP_RANKS} gloo ranks vs one", exact=False)
     for r, res in enumerate(ranks):
         for name, n in res["launches"].items():
-            check(n > 0, f"[dp] (b) rank {r}: {name} was not launched")
+            if KERNELS[name][2]:
+                check(n > 0, f"[dp] (b) rank {r}: {name} was not launched")
     log(f"[dp] (b) {DP_RANKS} ranks over gloo on the one card, {BATCH // DP_RANKS} rows each "
         f"of the global batch of {BATCH}: the ranks' gradients, parameters and losses equal "
         f"bit for bit, their int8 collections and pools alike; pool pointer "
@@ -3504,8 +3737,7 @@ def main() -> int:
     ptr_before = int(pool.ptr)
     shapes = {}
     traj, st, pool, shapes["bf16"], results["bf16"] = drive(engine, st, pool, rgen, "bf16", smi)
-    check(all(results["bf16"]["launches"][n] == 0 for n, k in KERNELS.items()
-              if k[2] == ("int8",)),
+    check(all(results["bf16"]["launches"][n] == 0 for n in INT8_KERNELS),
           "an int8 kernel ran on the uncalibrated (bf16) path")
     sanity(traj, st, pool, ptr_before, cfg.num_actions)
     results["bf16"]["other_branch_fps"] = other_branch(engine, st, pool, rgen, cfg.num_actions,
@@ -3531,6 +3763,8 @@ def main() -> int:
                                                        "int8")
     results["int8"]["profile"] = profile_run(
         lambda: engine.rollout(st, pool, HORIZON, generator=rgen), "int8", "rollout")
+    int8_sites_ops(results, smi)
+    results["int8"]["site_host_us"] = int8_site_host_costs(smi)
     log(f"[rollout] imagination_fps_batch32_n3: int8 {results['int8']['fps']:.1f} vs bf16 "
         f"{results['bf16']['fps']:.1f} env_frames/s on {smi}")
     colls = [quant.collection(agent.denoiser.inner_model), quant.collection(agent.rew_end_model.net)]
@@ -3573,12 +3807,18 @@ def main() -> int:
         runs.update(more[2])
     rows, details = compare_kernels(shapes, launches, runs)
     for r in rows:
-        log(f"[kernel] {r['name']}: {r['launches']} launches on the {r['path']} path, "
+        where = (f"on the {r['path']} path" if r["path"] else
+                 "on no path (phase 7 alone drives it)")
+        log(f"[kernel] {r['name']}: {r['launches']} launches {where}, "
             f"{r['shapes']} shapes, {r['ms']:.2f} ms of device time per {r['per']} (plain "
             f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.2f} ms by {r['bound_by']}"
             + (f", library {r['library_ms']:.2f} ms" if r["library_ms"] is not None else "")
             + (f"; on the {r['library_covers']}: kernel {r['ms_where_library']:.2f} ms, library "
                f"{r['library_ms']:.2f} ms" if "library_covers" in r else "")
+            + (f"; the separate ops it replaced {r['old_route_ms']:.2f} ms"
+               if "old_route_ms" in r else "")
+            + (f"; K5 on its codes {r['conv_ms']:.2f} ms, quant.conv3x3_q8 whole "
+               f"{r['whole_ms']:.2f} ms" if "conv_ms" in r else "")
             + ")")
         for p, v in r["by_path"].items():
             if p != r["path"]:

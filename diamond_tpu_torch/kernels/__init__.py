@@ -45,6 +45,10 @@ _SIGNATURES = {
     "groupnorm_silu_q8_fwd": (_P, _P, _P, _I, _P, _P, _P, _P),
     # x, x_dtype, act_max, w_k, w_scale, sample_scale, bias, y, out_dtype, plan, stream
     "conv3x3_q8_fwd": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P),
+    # x, x_dtype, row stride, act_max, w_k, w_scale, bias, y, out_dtype, M, K, N, stream
+    "matmul_q8_fwd": (_P, _I, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, x_dtype, numel, partial maxima (scratch), q, scale, B, stream
+    "absmax_quantize_q8_fwd": (_P, _I, _L, _P, _P, _P, _I, _P),
     # x, dy, moments, scale, bias, aff_dtype, dx, dsb, rows, ticket, silu,
     # plan (norm_plan.bwd_plan), stream
     "groupnorm_silu_bwd": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P),
@@ -138,6 +142,15 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib
+
+
+def stream(device) -> int:
+    """The handle of the current CUDA stream on ``device``, as the entry points take it:
+    ``torch.cuda.current_stream(device).cuda_stream`` without making a Stream object,
+    which costs a few µs of host time a launch."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(code: int, name: str) -> None:

@@ -304,9 +304,6 @@ struct Wgmma<int, 64> {
 // ---------------------------------------------------------------------------
 // The kernel
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
 // Eight channels of x at src (8-element aligned) as f32.
 __device__ __forceinline__ void load8(const float* src, float* v) {
   const float4 a = *reinterpret_cast<const float4*>(src);

@@ -1,13 +1,18 @@
-// The symmetric int8 quantize shared by fused_q8.cu (K4) and conv3x3_q8.cu (K5):
+// The symmetric int8 quantize shared by fused_q8.cu (K4), conv3x3_q8.cu (K5), matmul_q8.cu
+// (K6) and quantize_q8.cu (K7):
 // q = clip(round(v / s), -127, 127), rounding half to even and dividing truly (a multiply
 // by 1/s would move round-half cases), as diamond_tpu/ops/quant.py does with jnp.round.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ signed char quantize_q8(float v, float s) {
   const float r = fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), 127.f);

@@ -26,7 +26,8 @@ left out by ``int8_sites`` (no ``act_scale``: unquantized). Where a norm + SiLU 
 quantized 3x3 conv (ResBlock norm1 -> conv1 and norm2 -> conv2, the denoiser's
 norm_out -> conv_out), the norm writes the conv's int8 codes itself (K4, ops/fused_q8.py)
 and the conv reads them (K5, ops/conv3x3_q8.py); every other quantized 3x3 conv
-quantizes x as K5 loads it.
+quantizes x as K5 loads it. A quantized Conv1x1 or QDense is one launch of K6
+(ops/matmul_q8.py), which quantizes x as it loads it and adds the bias in ``dtype``.
 """
 
 from __future__ import annotations
@@ -126,10 +127,9 @@ class Conv1x1(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        if quant.quantized(self):
-            y = quant.matmul_q8_static(x, self.kernel[0, 0], self.act_scale, self.w_q,
-                                       self.w_scale).to(dt)
-            return y + self.bias.to(dt)
+        if quant.quantized(self):  # K6, the bias added in its epilogue
+            return quant.matmul_q8_static(x, self.kernel, self.act_scale, self.w_q,
+                                          self.w_scale, self.bias, dt, self.w_k)
         if quant.recording():
             quant.record(self, _channel_absmax(x), "conv1x1", w=self.kernel[0, 0])
         return x.to(dt) @ self.kernel[0, 0].to(dt) + self.bias.to(dt)
@@ -162,13 +162,12 @@ class QDense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        if quant.quantized(self):
-            y = quant.matmul_q8_static(x, self.kernel, self.act_scale, self.w_q,
-                                       self.w_scale).to(dt)
-        else:
-            if quant.recording():
-                quant.record(self, _channel_absmax(x), "dense", w=self.kernel)
-            y = x.to(dt) @ self.kernel.to(dt)
+        if quant.quantized(self):  # K6, the bias added in its epilogue
+            return quant.matmul_q8_static(x, self.kernel, self.act_scale, self.w_q,
+                                          self.w_scale, self.bias, dt, self.w_k)
+        if quant.recording():
+            quant.record(self, _channel_absmax(x), "dense", w=self.kernel)
+        y = x.to(dt) @ self.kernel.to(dt)
         return y if self.bias is None else y + self.bias.to(dt)
 
 

@@ -7,7 +7,9 @@ nonlinearities run in ``dtype``.
 
 The cell is the int8 "lstm" site (ops/quant.py): its input-side scales are recorded by
 ``LSTM`` over the whole sequence, and the hidden side uses the static bound |h| < 1
-(h = o * tanh(c) with o in (0, 1)), so it needs no calibration.
+(h = o * tanh(c) with o in (0, 1)), so it needs no calibration. ``quant.install`` folds
+both weights into int8 once (``quant.LSTM_DERIVED``), where the JAX cell folds them in
+its scan body and XLA hoists that loop-invariant fold.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ class LSTMCell(nn.Module):
         self.bias_ih = nn.Parameter(torch.empty(4 * hidden_dim))
         self.bias_hh = nn.Parameter(torch.empty(4 * hidden_dim))
         self.hidden_dim, self.dtype = hidden_dim, dtype
-        quant.add_site_buffers(self)
+        quant.add_site_buffers(self, lstm=True)
 
     def reset_parameters(self, g: torch.Generator) -> None:
         fan_in, fan_out = self.weight_ih.shape
@@ -51,10 +53,11 @@ class LSTMCell(nn.Module):
     def forward(self, carry: Carry, x: torch.Tensor) -> Tuple[Carry, torch.Tensor]:
         hx, cx = carry
         dt = self.dtype
-        if quant.quantized(self):
-            h_max = torch.ones(self.hidden_dim, device=hx.device)
-            gates = (quant.matmul_q8_static(x, self.weight_ih, self.act_scale)
-                     + quant.matmul_q8_static(hx, self.weight_hh, h_max)
+        if quant.quantized(self):  # two K6 products in f32, folded once at install
+            gates = (quant.matmul_q8_static(x, self.weight_ih, self.act_scale, self.ih_q,
+                                            self.ih_scale, w_k=self.ih_k)
+                     + quant.matmul_q8_static(hx, self.weight_hh, self.hh_max, self.hh_q,
+                                              self.hh_scale, w_k=self.hh_k)
                      + (self.bias_ih + self.bias_hh)).to(dt)
         else:
             gates = (x.to(dt) @ self.weight_ih.to(dt) + hx.to(dt) @ self.weight_hh.to(dt)

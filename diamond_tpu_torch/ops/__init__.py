@@ -12,3 +12,5 @@ from .fused_q8 import (QTensor, adagn_silu_q8, adagn_silu_q8_plain, code_flips,
                        conv3x3_qtensor, group_stats_channels, groupnorm_silu_q8,
                        groupnorm_silu_q8_plain, norm_affine_silu_q8, norm_affine_silu_q8_plain,
                        per_sample_code_flips, static_code_flips, ulp)
+from .matmul_q8 import kmajor_2d, matmul_int8, matmul_int8_plain
+from .quantize_q8 import absmax_quantize_q8, absmax_quantize_q8_plain

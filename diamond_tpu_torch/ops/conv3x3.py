@@ -75,7 +75,7 @@ def _conv3x3_launch(x, kernel, bias, stride, name):
         kernel = F.pad(kernel, (0, -cout % 8))
     ptrs = (x.data_ptr(), kernel.data_ptr(), None if bias is None else bias.data_ptr(),
             y.data_ptr())
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = kernels.stream(x.device)
     if code == 1:
         code = kernels.lib().conv3x3_bf16_fwd(
             *ptrs, k3_plan(b, h, w, cin, cout, stride).c_ints, stream)
@@ -220,7 +220,7 @@ def conv3x3_dgrad_s2(dy: torch.Tensor, kernel: torch.Tensor, hw) -> torch.Tensor
     kernel = kernel.to(dy.dtype).contiguous()
     cin = kernel.shape[2]
     dx = torch.empty((b, h, w, cin), device=dy.device, dtype=dy.dtype)
-    stream = torch.cuda.current_stream(dy.device).cuda_stream
+    stream = kernels.stream(dy.device)
     if code == 1:
         if dy.data_ptr() % 16 or kernel.data_ptr() % 16:
             raise ValueError("conv3x3_dgrad_s2: bf16 operands must be 16-byte aligned")
@@ -278,7 +278,7 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, stride: int = 1,
     ho, wo, cout = dy.shape[1:]
     dw = torch.empty((3, 3, cin, cout), device=x.device, dtype=x.dtype)
     db = torch.empty((cout,), device=x.device, dtype=torch.float32) if with_bias else None
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = kernels.stream(x.device)
     f32 = dict(device=x.device, dtype=torch.float32)
     if code == 1:
         if x.data_ptr() % 16 or dy.data_ptr() % 16:

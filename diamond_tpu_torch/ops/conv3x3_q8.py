@@ -150,7 +150,7 @@ def conv3x3_int8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
         x.data_ptr(), _X_CODES[x.dtype], ptr(act_max), w_k.data_ptr(), w_scale.data_ptr(),
         ptr(sample_scale), ptr(bias), y.data_ptr(), _OUT_CODES[out_dtype],
         k5_plan(b, h, w, cin, cout, stride, x.dtype == torch.int8).c_ints,
-        torch.cuda.current_stream(x.device).cuda_stream), "conv3x3_int8")
+        kernels.stream(x.device)), "conv3x3_int8")
     conv3x3_int8.launches += 1
     conv3x3_int8.shapes[(tuple(x.shape), str(x.dtype), cout, stride, bias is not None,
                          sample_scale is not None, str(out_dtype))] += 1

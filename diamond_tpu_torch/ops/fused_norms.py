@@ -215,7 +215,7 @@ def _adagn_silu_fwd(x, scale_shift, num_groups, silu, moments=False):
     mom, mom_ptr = _moments_out(x, num_groups, moments)
     kernels.check(kernels.lib().adagn_silu_fwd(
         x.data_ptr(), ss.data_ptr(), code, y.data_ptr(), mom_ptr, int(silu), plan.c_ints,
-        torch.cuda.current_stream(x.device).cuda_stream), "adagn_silu")
+        kernels.stream(x.device)), "adagn_silu")
     adagn_silu.launches += 1
     adagn_silu.shapes[(tuple(x.shape), str(x.dtype), bool(silu))] += 1
     return (y, mom) if moments else y
@@ -293,7 +293,7 @@ def adagn_silu_bwd(x: torch.Tensor, dy: torch.Tensor, scale_shift: torch.Tensor,
     dss = torch.empty_like(ss)
     kernels.check(kernels.lib().adagn_silu_bwd(
         x.data_ptr(), dy.data_ptr(), moments.data_ptr(), ss.data_ptr(), code, dx.data_ptr(),
-        dss.data_ptr(), int(silu), plan.c_ints, torch.cuda.current_stream(x.device).cuda_stream),
+        dss.data_ptr(), int(silu), plan.c_ints, kernels.stream(x.device)),
         "adagn_silu_bwd")
     adagn_silu_bwd.launches += 1
     adagn_silu_bwd.shapes[(tuple(x.shape), str(x.dtype), bool(silu), str(ss.dtype))] += 1
@@ -314,7 +314,7 @@ def _groupnorm_silu_fwd(x, scale, bias, num_groups, silu, moments=False):
     mom, mom_ptr = _moments_out(x, num_groups, moments)
     kernels.check(kernels.lib().groupnorm_silu_fwd(
         x.data_ptr(), sc.data_ptr(), bi.data_ptr(), code, y.data_ptr(), mom_ptr, int(silu),
-        plan.c_ints, torch.cuda.current_stream(x.device).cuda_stream), "groupnorm_silu")
+        plan.c_ints, kernels.stream(x.device)), "groupnorm_silu")
     groupnorm_silu.launches += 1
     groupnorm_silu.shapes[(tuple(x.shape), str(x.dtype), bool(silu))] += 1
     return (y, mom) if moments else y
@@ -388,7 +388,7 @@ def groupnorm_silu_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
     kernels.check(kernels.lib().groupnorm_silu_bwd(
         x.data_ptr(), dy.data_ptr(), moments.data_ptr(), sc.data_ptr(), bi.data_ptr(), code,
         dx.data_ptr(), dsb.data_ptr(), rows.data_ptr(), _ticket(x.device).data_ptr(), int(silu),
-        plan.c_ints, torch.cuda.current_stream(x.device).cuda_stream), "groupnorm_silu_bwd")
+        plan.c_ints, kernels.stream(x.device)), "groupnorm_silu_bwd")
     groupnorm_silu_bwd.launches += 1
     groupnorm_silu_bwd.shapes[(tuple(x.shape), str(x.dtype), bool(silu), str(sc.dtype))] += 1
     return dx, dsb[0], dsb[1]

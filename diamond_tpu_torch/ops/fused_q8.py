@@ -110,7 +110,7 @@ def norm_affine_silu_q8(x: torch.Tensor, mean_c: torch.Tensor, inv_c: torch.Tens
     kernels.check(kernels.lib().norm_affine_silu_q8_fwd(
         x.data_ptr(), *(t.data_ptr() for t in rows), q.data_ptr(), scale.data_ptr(),
         amax.data_ptr(), b, h * w, c, s, span, threads, kernels.dtype_code(x.dtype),
-        torch.cuda.current_stream(x.device).cuda_stream), "norm_affine_silu_q8")
+        kernels.stream(x.device)), "norm_affine_silu_q8")
     norm_affine_silu_q8.launches += 1
     norm_affine_silu_q8.shapes[(tuple(x.shape), str(x.dtype))] += 1
     return QTensor(q, scale)
@@ -171,7 +171,7 @@ def adagn_silu_q8(x: torch.Tensor, scale_shift: torch.Tensor, num_groups: int,
     q = torch.empty(x.shape, device=x.device, dtype=torch.int8)
     kernels.check(kernels.lib().adagn_silu_q8_fwd(
         x.data_ptr(), ss.data_ptr(), code, am.data_ptr(), q.data_ptr(), plan.c_ints,
-        torch.cuda.current_stream(x.device).cuda_stream), "adagn_silu_q8")
+        kernels.stream(x.device)), "adagn_silu_q8")
     adagn_silu_q8.launches += 1
     adagn_silu_q8.shapes[(tuple(x.shape), str(x.dtype))] += 1
     return q
@@ -194,7 +194,7 @@ def groupnorm_silu_q8(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     q = torch.empty(x.shape, device=x.device, dtype=torch.int8)
     kernels.check(kernels.lib().groupnorm_silu_q8_fwd(
         x.data_ptr(), sc.data_ptr(), bi.data_ptr(), code, am.data_ptr(), q.data_ptr(),
-        plan.c_ints, torch.cuda.current_stream(x.device).cuda_stream), "groupnorm_silu_q8")
+        plan.c_ints, kernels.stream(x.device)), "groupnorm_silu_q8")
     groupnorm_silu_q8.launches += 1
     groupnorm_silu_q8.shapes[(tuple(x.shape), str(x.dtype))] += 1
     return q

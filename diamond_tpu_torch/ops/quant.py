@@ -7,7 +7,9 @@ folds into the weight, which is quantized per output channel
 (``fold_quantize_weight``); at run time x is quantized with s_c, the product runs on
 int8 values with int32 sums, and one f32 rescale by ``w_scale`` follows. Sites are
 3x3 convs (``conv3x3_q8_static``, the K5 kernel), 1x1 convs, dense layers and the LSTM
-gates (``matmul_q8_static``, a plain product of int8 values).
+gates (``matmul_q8_static``, the K6 kernel). ``conv3x3_q8``, the dynamic per-tensor-scale
+int8 conv of the JAX package, which no path calls, quantizes x with one max pass (K7)
+and convolves through K5.
 
 Enablement is structural, as in the JAX package: a site quantizes only when its module
 holds a calibrated ``act_scale`` buffer (``install``; with ``w_q``/``w_scale`` beside it
@@ -33,14 +35,23 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from .conv3x3_q8 import (ACT_SCALE_HEADROOM, conv3x3_int8, kmajor_weights, quantize_static,
-                         refuse_grad, static_scale, true_div)
+from .conv3x3_q8 import (ACT_SCALE_HEADROOM, conv3x3_int8, kmajor_weights, refuse_grad,
+                         static_scale, true_div)
+from .fused_q8 import conv3x3_qtensor
+from .matmul_q8 import kmajor_2d, matmul_int8
+from .quantize_q8 import absmax_quantize_q8
 
 SITES_ALL = ("conv3x3", "conv1x1", "dense", "lstm")
 LEAVES = ("act_scale", "w_q", "w_scale")
-# Made from the leaves by ``install``, never part of the collection: a 3x3 site's K-major
-# weight copy, which the int8 conv kernel reads (conv3x3_q8.kmajor_weights).
+# Made from the leaves by ``install``, never part of the collection: a site's K-major
+# weight copy, which its int8 kernel reads (conv3x3_q8.kmajor_weights for a 3x3 site,
+# matmul_q8.kmajor_2d for a matmul site).
 DERIVED = ("w_k",)
+# An LSTM site's two gate products, folded by ``install`` from the cell's weights as they
+# are then: the input side with its calibrated act_scale, the hidden side with the static
+# bound |h| < 1 (``hh_max``, ones). The JAX cell folds both inside its scan body, where
+# XLA hoists the loop-invariant fold; here it is made once, not on every step.
+LSTM_DERIVED = ("ih_q", "ih_scale", "ih_k", "hh_max", "hh_q", "hh_scale", "hh_k")
 
 _ACTIVE = contextvars.ContextVar("diamond_tpu_torch_int8_active", default=False)
 _CALIBRATING = contextvars.ContextVar("diamond_tpu_torch_int8_calibrating", default=None)
@@ -171,43 +182,51 @@ def conv3x3_q8_static(x: torch.Tensor, w: torch.Tensor, act_max: torch.Tensor,
     return conv3x3_int8(x, w_q, w_scale, act_max, bias, strides, out_dtype, w_k=w_k)
 
 
-def _int_mm_takes(m: int, k: int, n: int) -> bool:
-    """The shapes ``torch._int_mm`` takes on the card: more than 16 rows, K and N
-    multiples of 8."""
-    return m > 16 and k % 8 == 0 and n % 8 == 0
-
-
 def matmul_q8_static(x: torch.Tensor, w: torch.Tensor, act_max: torch.Tensor,
                      w_q: Optional[torch.Tensor] = None,
-                     w_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     w_scale: Optional[torch.Tensor] = None,
+                     bias: Optional[torch.Tensor] = None,
+                     out_dtype: torch.dtype = torch.float32,
+                     w_k: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Contraction over the last axis on int8 values with static per-input-channel
     scales, the matmul twin of ``conv3x3_q8_static`` (conv1x1, dense and LSTM sites).
-    x: (..., Cin); w: (Cin, Cout) f32; act_max: (Cin,). Returns f32 (caller adds bias).
-
-    The int8 product is ``torch._int_mm`` for a CUDA tensor of a shape it takes, else a
-    matmul of the int8 values in float64; both sums are exact. Forward-only: on a CUDA
-    tensor under grad mode it refuses inputs that need a gradient."""
+    x: (..., Cin); w: (Cin, Cout) f32, or a 1x1 conv's (1, 1, Cin, Cout), read only where
+    it is folded here; act_max: (Cin,). ``w_q``/``w_scale``: the calibration-time fold
+    (else folded here); ``w_k``: the kernel's K-major copy of that ``w_q`` (``install``
+    makes it). Returns f32(x_q @ w_q) * w_scale in ``out_dtype``, plus
+    ``bias`` added in ``out_dtype`` (the JAX package's order: quant.py:209, blocks.py:104,
+    :109). On a CUDA tensor the product is always K6 (ops/matmul_q8.py). Forward-only: on
+    a CUDA tensor under grad mode it refuses inputs that need a gradient."""
     fold = w_q is None or w_scale is None
     if x.is_cuda:
-        refuse_grad("matmul_q8_static", x, w if fold else None)
+        refuse_grad("matmul_q8_static", x, bias, w if fold else None)
     if fold:
-        w_q, w_scale = fold_quantize_weight(w, act_max)
-    xq = quantize_static(x, act_max).reshape(-1, x.shape[-1])
-    (m, k), n = xq.shape, w_q.shape[-1]
-    if xq.is_cuda and _int_mm_takes(m, k, n):
-        acc = torch._int_mm(xq, w_q)
-    else:
-        acc = xq.double() @ w_q.double()
-    return (acc.float() * w_scale).reshape(*x.shape[:-1], n)
+        w_q, w_scale, w_k = *fold_quantize_weight(w.reshape(w.shape[-2:]), act_max), None
+    return matmul_int8(x, w_q, w_scale, act_max, bias, out_dtype, w_k=w_k)
+
+
+def conv3x3_q8(x: torch.Tensor, w: torch.Tensor, strides: int = 1) -> torch.Tensor:
+    """3x3 SAME conv on int8 values with a dynamic per-tensor activation scale
+    (diamond_tpu/ops/quant.py::conv3x3_q8): sx = max(max |x|, 1e-12) / 127 over the whole
+    tensor, per-output-channel weight scales sw = max(max |w| over (kh, kw, Cin), 1e-8) /
+    127 of the unfolded weights, int32 sums, y = f32(acc) * (sx * sw). x: (B, H, W, Cin)
+    float; w: (3, 3, Cin, Cout). Returns f32 (caller adds bias). On a CUDA tensor x is
+    quantized by K7 (ops/quantize_q8.py) and convolved by K5; sx stays on the card.
+    Forward-only: on a CUDA tensor under grad mode it refuses inputs that need a
+    gradient."""
+    if x.is_cuda:
+        refuse_grad("conv3x3_q8", x, w)
+    return conv3x3_qtensor(absmax_quantize_q8(x), w, strides)
 
 
 # ---------------------------------------------------------------------------
 # The collection on a module tree
 
 
-def add_site_buffers(module: nn.Module) -> None:
-    """Give a quantizable module its (empty, non-persistent) collection buffers."""
-    for name in LEAVES + DERIVED:
+def add_site_buffers(module: nn.Module, lstm: bool = False) -> None:
+    """Give a quantizable module its (empty, non-persistent) collection buffers, and an
+    LSTM cell (``lstm``) those of its folded gate products."""
+    for name in LEAVES + DERIVED + (LSTM_DERIVED if lstm else ()):
         module.register_buffer(name, None, persistent=False)
 
 
@@ -218,8 +237,18 @@ def _sites(root: nn.Module):
 def strip(root: nn.Module) -> None:
     """Drop every site's collection: the tree runs unquantized again."""
     for _, m in _sites(root):
-        for name in LEAVES + DERIVED:
-            setattr(m, name, None)
+        for name in LEAVES + DERIVED + LSTM_DERIVED:
+            if name in m._buffers:
+                setattr(m, name, None)
+
+
+def _fold_lstm(m: nn.Module) -> None:
+    """An LSTM site's folded gate products (LSTM_DERIVED), from its weights as they are."""
+    with torch.no_grad():
+        m.ih_q, m.ih_scale = fold_quantize_weight(m.weight_ih, m.act_scale)
+        m.hh_max = torch.ones(m.weight_hh.shape[0], device=m.weight_hh.device)
+        m.hh_q, m.hh_scale = fold_quantize_weight(m.weight_hh, m.hh_max)
+        m.ih_k, m.hh_k = kmajor_2d(m.ih_q), kmajor_2d(m.hh_q)
 
 
 def install(root: nn.Module, collection: dict) -> None:
@@ -239,8 +268,10 @@ def install(root: nn.Module, collection: dict) -> None:
                 dtype = torch.int8 if name == "w_q" else torch.float32
                 t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
                 setattr(m, name, t.to(device=dev, dtype=dtype).contiguous())
-            if m.w_q is not None and m.w_q.dim() == 4:  # a 3x3 site
-                m.w_k = kmajor_weights(m.w_q)
+            if m.w_q is not None:
+                m.w_k = kmajor_weights(m.w_q) if m.w_q.dim() == 4 else kmajor_2d(m.w_q)
+            if "hh_q" in m._buffers:
+                _fold_lstm(m)
         for k, v in node.items():
             if isinstance(v, dict):
                 walk(v, (*path, k))
@@ -265,6 +296,12 @@ def folded_from_current_weights(root: nn.Module) -> bool:
     """True where every site's ``w_q``/``w_scale`` is the fold of its weight as it is now
     (a site calibrated before its weight was updated rolls out on the old weight)."""
     for _, m in _sites(root):
+        if getattr(m, "hh_q", None) is not None:  # an LSTM site: both folds
+            for w, am, wq_, ws_ in ((m.weight_ih, m.act_scale, m.ih_q, m.ih_scale),
+                                    (m.weight_hh, m.hh_max, m.hh_q, m.hh_scale)):
+                wq, ws = fold_quantize_weight(w, am)
+                if not (torch.equal(wq, wq_) and torch.equal(ws, ws_)):
+                    return False
         if m.w_q is None or m.act_scale is None:
             continue
         w = m.kernel if m.kernel.dim() == m.w_q.dim() else m.kernel[0, 0]

@@ -320,19 +320,142 @@ def test_k4_quantizes_near_rounding_ties_like_a_true_division():
         assert torch.equal(q, quantize_static(adagn_silu(x, ss, gr), am))
 
 
+# K6 at the int8 sites' shapes, (M, K, N): the denoiser's up-path projections (B = 32,
+# 8x8 to 64x64), its mid attention and the rew/end attention, the csgo dynamics U-Net's
+# projections at batch 1 (16x16 frames, down to 2x2: M = 4), the int8_sites=all sites (the
+# AdaGN and cond linears at M = B, the rew/end LSTM's input and hidden gates, its heads),
+# then ragged shapes: M = 1, K = 15 and 33, N = 5 and 70.
+MATMUL_SHAPES = [(32 * 4096, 128, 64), (32 * 1024, 128, 64), (32 * 256, 128, 64),
+                 (32 * 64, 128, 64), (2048, 64, 192), (2048, 64, 64), (2048, 32, 96),
+                 (2048, 32, 32), (256, 128, 64), (64, 128, 64), (16, 128, 64), (4, 128, 64),
+                 (32, 256, 128), (32, 256, 256), (32, 2048, 2048), (32, 512, 2048),
+                 (32, 512, 512), (32, 512, 5), (1, 15, 5), (7, 33, 70), (300, 15, 24)]
+
+
+def _matmul_inputs(m, k, n, x_dtype, g):
+    if x_dtype == torch.int8:
+        x = torch.randint(-127, 128, (m, k), device="cuda", generator=g, dtype=torch.int8)
+        am = None
+    else:
+        x = (torch.randn(m, k, device="cuda", generator=g)
+             * torch.logspace(-2, 1, k, device="cuda")).to(x_dtype)
+        am = x.float().abs().amax(dim=0) * 0.9  # some values clip
+    wq = torch.randint(-127, 128, (k, n), device="cuda", generator=g, dtype=torch.int8)
+    ws = torch.rand(n, device="cuda", generator=g) * 1e-3 + 1e-5
+    return x, wq, ws, am, torch.randn(n, device="cuda", generator=g)
+
+
 @pytest.mark.cuda
 def test_int8_matmul_routes_agree_on_the_card():
-    """matmul_q8_static: torch._int_mm (shapes it takes) and the float64 route give the
-    same result; both are exact."""
+    """K6 (the only route of matmul_int8 on the card) against its plain version, bit for
+    bit (int8 sums, then the same IEEE steps), at every int8 site shape, bf16/f32/int8 x,
+    bf16/f32 out, with and without the bias; a row-strided x (a time step of the LSTM's
+    input) and an odd K read element by element."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
+    from diamond_tpu_torch.ops import kmajor_2d, matmul_int8, matmul_int8_plain
+
     g = torch.Generator(device="cuda").manual_seed(2)
-    for m, k, n in [(2048, 32, 96), (32, 2048, 2048), (32, 512, 5), (8, 64, 64)]:
-        x = torch.randn(m, k, device="cuda", generator=g)
-        w = torch.randn(k, n, device="cuda", generator=g) / k ** 0.5
-        am = x.abs().amax(dim=0)
-        assert torch.equal(quant.matmul_q8_static(x, w, am).cpu(),
-                           quant.matmul_q8_static(x.cpu(), w.cpu(), am.cpu()))
+    for m, k, n in MATMUL_SHAPES:
+        for x_dtype, out_dtype, bias in [(torch.bfloat16, torch.bfloat16, True),
+                                         (torch.float32, torch.float32, False),
+                                         (torch.int8, torch.float32, True),
+                                         (torch.float32, torch.bfloat16, False)]:
+            x, wq, ws, am, b = _matmul_inputs(m, k, n, x_dtype, g)
+            b = b if bias else None
+            before = matmul_int8.launches
+            y = matmul_int8(x, wq, ws, am, b, out_dtype, w_k=kmajor_2d(wq))
+            ref = matmul_int8_plain(x, wq, ws, am, b, out_dtype)
+            torch.cuda.synchronize()
+            assert matmul_int8.launches == before + 1
+            assert y.dtype == out_dtype and y.shape == (m, n)
+            assert torch.equal(y, ref), (m, k, n, x_dtype, out_dtype, bias)
+    seq = torch.randn(32, 5, 2048, device="cuda", generator=g)
+    x = seq[:, 2]  # rows 5 * 2048 apart
+    _, wq, ws, _, _ = _matmul_inputs(32, 2048, 512, torch.float32, g)
+    am = x.abs().amax(dim=0)
+    assert torch.equal(matmul_int8(x, wq, ws, am), matmul_int8_plain(x.contiguous(), wq, ws, am))
+
+
+@pytest.mark.cuda
+def test_int8_sites_on_the_card_make_one_k6_launch_and_no_int_mm():
+    """A quantized Conv1x1 and QDense on the card: one K6 launch per call, and no
+    aten::_int_mm, round, clamp or float64 matmul under the call; the same result as on
+    the CPU bit for bit (the CPU takes the plain version)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from torch.profiler import ProfilerActivity, profile
+
+    from diamond_tpu_torch.models.blocks import Conv1x1, QDense, init_weights
+    from diamond_tpu_torch.ops import matmul_int8
+
+    gen = torch.Generator().manual_seed(3)
+    for mod, shape in [(Conv1x1(128, 64, torch.bfloat16), (32, 8, 8, 128)),
+                       (QDense(256, 128, torch.bfloat16), (32, 256))]:
+        init_weights(mod, gen)
+        x = torch.randn(shape, generator=gen)
+        kind = "conv1x1" if isinstance(mod, Conv1x1) else "dense"
+        w = mod.kernel[0, 0] if kind == "conv1x1" else mod.kernel
+        reg = {}
+        with torch.no_grad(), quant.int8_scope(True), quant.calibration_scope(reg, mod):
+            mod(x)
+        coll = quant.registry_to_collection(reg)
+        assert set(coll) == {"act_scale", "w_q", "w_scale"} and w.shape == coll["w_q"].shape
+        quant.install(mod, coll)
+        with torch.no_grad(), quant.int8_scope(True):
+            y_cpu = mod(x)
+            mod.cuda()
+            xc = x.cuda()
+            mod(xc)
+            before = matmul_int8.launches
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                y = mod(xc)
+            torch.cuda.synchronize()
+        ops = {e.key for e in prof.key_averages()}
+        assert matmul_int8.launches == before + 1
+        assert not ops & {"aten::_int_mm", "aten::round", "aten::clamp", "aten::mm",
+                          "aten::matmul"}, ops
+        assert y.dtype == torch.bfloat16 and torch.equal(y.cpu(), y_cpu)
+
+
+K7_SHAPES = [((32, 64, 64, 64), 1), ((32, 64, 64, 64), 2), ((32, 64, 64, 15), 1),
+             ((4, 9, 9, 15), 2), ((1, 5, 7, 64), 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dynamic_int8_conv_matches_plain_bit_for_bit_without_a_sync(dtype):
+    """K7 (``quant.conv3x3_q8``): its codes and sx against ``absmax_quantize_q8_plain``,
+    and the conv through K5 against the plain conv of the plain codes, bit for bit, at the
+    denoiser's 3x3 shapes (64x64 64 -> 64 at stride 1 and 2, conv_in's Cin 15) and ragged
+    ones; the call makes no host-device synchronisation (sx stays on the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diamond_tpu_torch.ops import (absmax_quantize_q8, absmax_quantize_q8_plain,
+                                       conv3x3_int8_plain)
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    for shape, stride in K7_SHAPES:
+        x = (torch.randn(shape, device="cuda", generator=g) * 3).to(dt)
+        w = torch.randn(3, 3, shape[-1], 64, device="cuda", generator=g) / 24
+        before = absmax_quantize_q8.launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            qt = absmax_quantize_q8(x)
+            y = quant.conv3x3_q8(x, w, stride)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ref = absmax_quantize_q8_plain(x)
+        torch.cuda.synchronize()
+        assert absmax_quantize_q8.launches == before + 2  # two calls: here and in the conv
+        assert torch.equal(qt.q, ref.q) and torch.equal(qt.scale, ref.scale)
+        assert (ref.scale == ref.scale[0]).all() and ref.scale.shape == (shape[0], 1)
+        sw = w.abs().amax(dim=(0, 1, 2)).clamp_min(1e-8) / torch.full((), 127.0, device="cuda")
+        wq = torch.clamp(torch.round(w / sw), -127, 127).to(torch.int8)
+        y_ref = conv3x3_int8_plain(ref.q, wq, sw, stride=stride, sample_scale=ref.scale)
+        assert y.dtype == torch.float32 and torch.equal(y, y_ref)
 
 
 @pytest.mark.cuda

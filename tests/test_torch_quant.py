@@ -1,7 +1,8 @@
 """diamond_tpu_torch's static int8 ops against diamond_tpu's: the calibration helpers of
 ops/quant.py, the quantizing norm K4 (its plain versions, against the Pallas kernel in
 interpret mode as tests/test_ops.py runs it, and against K1/K2), and the int8 conv K5
-and matmul (plain versions) against the JAX functions, on the same numpy inputs.
+and matmul (plain versions) against the JAX functions, on the same numpy inputs
+(tests/test_torch_matmul_q8.py holds K6's sites and K7).
 
 Tolerances: the int8 sums are exact on both sides, and every f32 step is the same IEEE
 operation, so weight codes are equal and scales agree to rtol 1e-6; conv and matmul
@@ -21,11 +22,13 @@ import torch
 
 from diamond_tpu.ops import fused_q8 as jq8
 from diamond_tpu.ops import quant as jquant
-from diamond_tpu_torch.ops import (QTensor, adagn_silu, adagn_silu_q8, adagn_silu_q8_plain,
+from diamond_tpu_torch.ops import (QTensor, absmax_quantize_q8, absmax_quantize_q8_plain,
+                                   adagn_silu, adagn_silu_q8, adagn_silu_q8_plain,
                                    conv3x3_int8, conv3x3_int8_plain, conv3x3_qtensor,
                                    group_stats_channels, groupnorm_silu, groupnorm_silu_q8,
-                                   groupnorm_silu_q8_plain, norm_affine_silu_q8,
-                                   norm_affine_silu_q8_plain, quant, quantize_static)
+                                   groupnorm_silu_q8_plain, matmul_int8, matmul_int8_plain,
+                                   norm_affine_silu_q8, norm_affine_silu_q8_plain, quant,
+                                   quantize_static)
 
 from torch_port_util import close, t
 
@@ -202,8 +205,13 @@ def test_int8_wrappers_take_the_plain_versions_on_cpu_and_count_no_launch():
     wq = torch.randint(-127, 128, (3, 3, 32, 16), dtype=torch.int8)
     ws = torch.rand(16) / 100
     rows = [t(rng.normal(size=(2, 32)).astype(np.float32)) for _ in range(4)]
-    fns = (conv3x3_int8, norm_affine_silu_q8, adagn_silu_q8, groupnorm_silu_q8)
+    fns = (conv3x3_int8, norm_affine_silu_q8, adagn_silu_q8, groupnorm_silu_q8, matmul_int8,
+           absmax_quantize_q8)
     counts = [f.launches for f in fns]
+    wd = torch.randint(-127, 128, (32, 16), dtype=torch.int8)
+    assert torch.equal(matmul_int8(x, wd, ws, am, ws, torch.bfloat16),
+                       matmul_int8_plain(x, wd, ws, am, ws, torch.bfloat16))
+    assert torch.equal(absmax_quantize_q8(x).q, absmax_quantize_q8_plain(x).q)
     assert torch.equal(conv3x3_int8(x, wq, ws, am, None, 2),
                        conv3x3_int8_plain(x, wq, ws, am, None, 2))
     assert torch.equal(norm_affine_silu_q8(x, *rows).q, norm_affine_silu_q8_plain(x, *rows).q)
@@ -214,7 +222,7 @@ def test_int8_wrappers_take_the_plain_versions_on_cpu_and_count_no_launch():
                        groupnorm_silu_q8_plain(x, one, zero, 1, am))
     assert [f.launches for f in fns] == counts
     if not torch.cuda.is_available():
-        assert counts == [0, 0, 0, 0]
+        assert counts == [0] * len(fns)
 
 
 def test_int8_modules_import_and_run_on_cpu_without_nvcc(tmp_path):
@@ -224,6 +232,9 @@ def test_int8_modules_import_and_run_on_cpu_without_nvcc(tmp_path):
             "x = torch.randn(1, 4, 4, 32); am = torch.ones(32)\n"
             "quant.conv3x3_q8_static(x, torch.randn(3, 3, 32, 8), am)\n"
             "quant.matmul_q8_static(x, torch.randn(32, 8), am)\n"
+            "quant.matmul_q8_static(x, torch.randn(32, 8), am, bias=torch.randn(8),\n"
+            "                       out_dtype=torch.bfloat16)\n"
+            "quant.conv3x3_q8(x, torch.randn(3, 3, 32, 8), 2)\n"
             "adagn_silu_q8(x, torch.randn(1, 64), 1, am)\n"
             "assert k._lib is None\n")
     env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path))
