@@ -131,7 +131,9 @@ result line):
      the share of the bound; for the 3x3 convs also the ratio to cuDNN's bf16 conv and
      the blocks of the launch plan, for the norms the cluster size and blocks of theirs;
      K4's per-sample epilogue at the int8 path's norm shapes; K6 also against the separate
-     ops it replaced and torch._int_mm on the same codes; K7, on no path, at the
+     ops it replaced and torch._int_mm on the same codes, with its launch plan
+     (ops/matmul_plan.py), and its 64² projection also with L2 flushed before each call
+     (its x and y fill L2); K7, on no path, at the
      denoiser's 3x3 shapes (DRIVEN_ONLY): its codes and scale, and the conv through K5,
      bit for bit;
   8. the trajectories' sanity, and small full-width rollouts in f32 on the card against
@@ -243,6 +245,9 @@ DRIVEN_ONLY = {"absmax_quantize_q8": [((32, 64, 64, 64), "torch.bfloat16", 64, 1
 # where it refuses the shape), rescaled, cast and added the bias in separate ops: printed
 # beside the count of this run
 INT8_ROLLOUT_BEFORE = (32918, 215.1)
+# K6 calls with at least this many rows (the denoiser's 64² projection, whose x and y
+# match L2's 50 MB) are also timed with L2 flushed before each call
+COLD_ROWS = 131072
 # the backward kernels, whose sums run in a fixed order: two calls give the same bits
 REPEATS = ("groupnorm_silu_bwd", "conv3x3_wgrad", "adagn_silu_bwd", "conv3x3_dgrad_s2")
 # the bias gradient, summed in the weight-gradient kernel: within DB_TOL of max(1, max
@@ -342,6 +347,36 @@ def cuda_time_ms(fn, iters: int = 20, reps: int = 3) -> float:
     return start.elapsed_time(end) / (iters * reps)
 
 
+def cuda_time_cold_ms(fn, reps: int = 20) -> float:
+    """Device time of one ``fn()`` call that finds nothing in L2: 256 MB written before
+    each call (five times the L2), each call timed alone by CUDA events, the mean of
+    ``reps``."""
+    import torch
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    fn()
+    events = []
+    for _ in range(reps):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
+def matmul_launch(args) -> str:
+    """K6's launch plan on make_inputs' arguments, in a few words (ops/matmul_plan.py)."""
+    from diamond_tpu_torch.ops.matmul_plan import describe, matmul_plan
+
+    x, n, out_dtype = args[0], args[1].shape[1], args[5]
+    k = x.shape[-1]
+    return describe(matmul_plan(x.numel() // k, k, n, k, x.element_size(), out_dtype.itemsize,
+                                x.data_ptr() % 16 == 0))
+
+
 def cudnn_bf16_conv(x, w, b, stride):
     """The library's bf16 conv on the same NHWC data (cuDNN, channels-last), for scale."""
     import torch.nn.functional as F
@@ -376,7 +411,7 @@ def library_call(name, args):
                                                    dy.permute(0, 3, 1, 2), stride=stride,
                                                    padding=1)
     if name == "matmul_int8":  # the int8 product alone, on codes made beforehand
-        xq = int8_codes(args[0], args[3]).reshape(-1, args[0].shape[-1])
+        xq = matmul_codes(args[0], args[3])
         if int_mm_takes(*xq.shape, args[1].shape[1]):
             return lambda: torch._int_mm(xq, args[1])
     return None
@@ -388,12 +423,11 @@ def int_mm_takes(m: int, k: int, n: int) -> bool:
     return m > 16 and k % 8 == 0 and n % 8 == 0
 
 
-def int8_codes(x, act_max):
-    """x's int8 codes with the static scales of act_max (x itself where it is codes)."""
-    import torch
+def matmul_codes(x, act_max):
+    """x's int8 codes with the static scales of act_max, as rows of K."""
     from diamond_tpu_torch import ops
 
-    return x if x.dtype == torch.int8 else ops.quantize_static(x, act_max)
+    return ops.quantize_static(x, act_max).reshape(-1, x.shape[-1])
 
 
 def old_matmul_route(x, w_q, w_scale, act_max, bias, out_dtype):
@@ -402,7 +436,7 @@ def old_matmul_route(x, w_q, w_scale, act_max, bias, out_dtype):
     yardstick of what K6 replaced, timed in phase 7)."""
     import torch
 
-    xq = int8_codes(x, act_max).reshape(-1, x.shape[-1])
+    xq = matmul_codes(x, act_max)
     (m, k), n = xq.shape, w_q.shape[1]
     acc = torch._int_mm(xq, w_q) if int_mm_takes(m, k, n) else xq.double() @ w_q.double()
     y = (acc.float() * w_scale).reshape(*x.shape[:-1], n).to(out_dtype)
@@ -597,12 +631,8 @@ def make_inputs(name, sig, dtype, gen):
     if name == "matmul_int8":  # x's shape and dtype, N, bias, out dtype; as the path ran
         shape, x_dtype, cout, has_bias, out_dtype = sig  # it, or x and y in dtype
         x_dt = getattr(torch, x_dtype.split(".")[1]) if out_dtype == str(dtype) else dtype
-        if x_dt == torch.int8:
-            x, am = torch.randint(-127, 128, shape, generator=gen, device=dev,
-                                  dtype=torch.int8), None
-        else:
-            x = rnd(*shape).to(x_dt)
-            am = x.float().abs().reshape(-1, shape[-1]).amax(dim=0) * 0.95
+        x = rnd(*shape).to(x_dt)
+        am = x.float().abs().reshape(-1, shape[-1]).amax(dim=0) * 0.95
         wq = torch.randint(-127, 128, (shape[-1], cout), generator=gen, device=dev,
                            dtype=torch.int8)
         ws = torch.rand(cout, generator=gen, device=dev) * 1e-3 + 1e-4
@@ -891,11 +921,12 @@ def compare_kernels(shapes, launches, runs):
                     if name.startswith("conv"):  # ratio to cuDNN, blocks
                         row["vs_library"] = t_k / row.get("library_ms", row.get("cudnn_bf16_ms"))
                         row["blocks"] = conv_blocks(name, args)
-                    elif name == "matmul_int8":  # 64 x 64 tiles of y; ratio to _int_mm
-                        m, n = args[0].numel() // args[0].shape[-1], args[1].shape[1]
-                        row["blocks"] = -(-m // 64) * -(-n // 64)
+                    elif name == "matmul_int8":  # its plan; ratio to _int_mm; the 64² cold
+                        row["plan"] = matmul_launch(args)
                         if "library_ms" in row:
                             row["vs_library"] = t_k / row["library_ms"]
+                        if args[0].numel() // args[0].shape[-1] >= COLD_ROWS:
+                            row["cold_ms"] = cuda_time_cold_ms(lambda: kernel(*args))
                     elif name == "absmax_quantize_q8":  # each of its two grids
                         row["blocks"] = min(1024, -(-args[0].numel() // (
                             4 * 256 * (16 // args[0].element_size()))))
@@ -940,12 +971,14 @@ def compare_kernels(shapes, launches, runs):
                 log(f"[compare] {name} {sig} {dt_name}: err {e:.3g} kernel {t_k:.4f} ms plain "
                     f"{t_p:.4f} ms" + "".join(f" {k} {row[k]:.4f}" for k in (
                         "bound_ms", "library_ms", "cudnn_bf16_ms", "old_route_ms", "conv_ms",
-                        "whole_ms", "per_sample_ms", "vs_library", "bound_share") if k in row)
+                        "whole_ms", "per_sample_ms", "vs_library", "bound_share", "cold_ms")
+                        if k in row)
                     + (f" db_err {row['db_err']:.3g}" if "db_err" in row else "")
                     + (f" moments_err {row['moments_err']:.3g}" if "moments_err" in row else "")
                     + (f" tol_share {row['tol_share']:.3g}" if "tol_share" in row else "")
                     + (f" cluster {row['cluster']}" if "cluster" in row else "")
-                    + (f" blocks {row['blocks']}" if "blocks" in row else ""))
+                    + (f" blocks {row['blocks']}" if "blocks" in row else "")
+                    + (f" plan: {row['plan']}" if "plan" in row else ""))
         by_path = {p: dict(launches=launches[p][name], ms=t["ms"], plain_ms=t["plain_ms"],
                            bound_ms=t["bound_ms"],
                            library_ms=t["library_ms"] if t["has_library"] else None,
@@ -3827,6 +3860,11 @@ def main() -> int:
                     f"{v['plain_ms']:.2f} ms, bound {v['bound_ms']:.2f} ms"
                     + (f", library {v['library_ms']:.2f} ms" if v["library_ms"] is not None
                        else "") + ")")
+    for d in details:
+        if "cold_ms" in d:
+            log(f"[kernel] matmul_int8 {d['signature']} {d['dtype']}: warm {d['ms']:.4f} ms "
+                f"(inputs reused, in L2), cold {d['cold_ms']:.4f} ms (L2 flushed), bound "
+                f"{d['bound_ms']:.4f} ms by bytes; {d['plan']}; on {smi}")
     results["reference_bf16"] = reference_check(agent, st, pool, wm_cfg)
     results["reference_int8"] = reference_check(agent, st, pool, wm_cfg, rt.int8_sites)
     with torch.enable_grad():

@@ -45,8 +45,8 @@ _SIGNATURES = {
     "groupnorm_silu_q8_fwd": (_P, _P, _P, _I, _P, _P, _P, _P),
     # x, x_dtype, act_max, w_k, w_scale, sample_scale, bias, y, out_dtype, plan, stream
     "conv3x3_q8_fwd": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P),
-    # x, x_dtype, row stride, act_max, w_k, w_scale, bias, y, out_dtype, M, K, N, stream
-    "matmul_q8_fwd": (_P, _I, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, act_max, w_k, w_scale, bias, y, plan (ops/matmul_plan.py), stream
+    "matmul_q8_fwd": (_P, _P, _P, _P, _P, _P, _P, _P),
     # x, x_dtype, numel, partial maxima (scratch), q, scale, B, stream
     "absmax_quantize_q8_fwd": (_P, _I, _L, _P, _P, _P, _I, _P),
     # x, dy, moments, scale, bias, aff_dtype, dx, dsb, rows, ticket, silu,

@@ -324,22 +324,23 @@ def test_k4_quantizes_near_rounding_ties_like_a_true_division():
 # 8x8 to 64x64), its mid attention and the rew/end attention, the csgo dynamics U-Net's
 # projections at batch 1 (16x16 frames, down to 2x2: M = 4), the int8_sites=all sites (the
 # AdaGN and cond linears at M = B, the rew/end LSTM's input and hidden gates, its heads),
-# then ragged shapes: M = 1, K = 15 and 33, N = 5 and 70.
+# then ragged shapes: M = 1, K = 15 and 33, N = 5 and 70, M one past or short of a tile
+# edge (16, 32 and 64 rows, and the bulk variant's threshold of 16,384), K = 2048 at N = 5
+# and K = 512 at N = 70 split over clusters.
 MATMUL_SHAPES = [(32 * 4096, 128, 64), (32 * 1024, 128, 64), (32 * 256, 128, 64),
                  (32 * 64, 128, 64), (2048, 64, 192), (2048, 64, 64), (2048, 32, 96),
                  (2048, 32, 32), (256, 128, 64), (64, 128, 64), (16, 128, 64), (4, 128, 64),
                  (32, 256, 128), (32, 256, 256), (32, 2048, 2048), (32, 512, 2048),
-                 (32, 512, 512), (32, 512, 5), (1, 15, 5), (7, 33, 70), (300, 15, 24)]
+                 (32, 512, 512), (32, 512, 5), (1, 15, 5), (7, 33, 70), (300, 15, 24),
+                 (16 * 9 + 1, 128, 64), (32 * 77 - 1, 64, 192), (16383, 128, 64),
+                 (16385, 128, 64), (64 * 513 - 1, 128, 64), (64 * 513 + 1, 128, 70),
+                 (33, 2048, 5), (65, 512, 70)]
 
 
 def _matmul_inputs(m, k, n, x_dtype, g):
-    if x_dtype == torch.int8:
-        x = torch.randint(-127, 128, (m, k), device="cuda", generator=g, dtype=torch.int8)
-        am = None
-    else:
-        x = (torch.randn(m, k, device="cuda", generator=g)
-             * torch.logspace(-2, 1, k, device="cuda")).to(x_dtype)
-        am = x.float().abs().amax(dim=0) * 0.9  # some values clip
+    x = (torch.randn(m, k, device="cuda", generator=g)
+         * torch.logspace(-2, 1, k, device="cuda")).to(x_dtype)
+    am = x.float().abs().amax(dim=0) * 0.9  # some values clip
     wq = torch.randint(-127, 128, (k, n), device="cuda", generator=g, dtype=torch.int8)
     ws = torch.rand(n, device="cuda", generator=g) * 1e-3 + 1e-5
     return x, wq, ws, am, torch.randn(n, device="cuda", generator=g)
@@ -348,9 +349,10 @@ def _matmul_inputs(m, k, n, x_dtype, g):
 @pytest.mark.cuda
 def test_int8_matmul_routes_agree_on_the_card():
     """K6 (the only route of matmul_int8 on the card) against its plain version, bit for
-    bit (int8 sums, then the same IEEE steps), at every int8 site shape, bf16/f32/int8 x,
-    bf16/f32 out, with and without the bias; a row-strided x (a time step of the LSTM's
-    input) and an odd K read element by element."""
+    bit (int8 sums, then the same IEEE steps), at every int8 site shape and the ragged
+    ones, bf16/f32 x, bf16/f32 out, with and without the bias, on the plan the wrapper
+    chooses; a row-strided x (a time step of the LSTM's input) and an odd K read element
+    by element."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from diamond_tpu_torch.ops import kmajor_2d, matmul_int8, matmul_int8_plain
@@ -359,7 +361,7 @@ def test_int8_matmul_routes_agree_on_the_card():
     for m, k, n in MATMUL_SHAPES:
         for x_dtype, out_dtype, bias in [(torch.bfloat16, torch.bfloat16, True),
                                          (torch.float32, torch.float32, False),
-                                         (torch.int8, torch.float32, True),
+                                         (torch.bfloat16, torch.float32, True),
                                          (torch.float32, torch.bfloat16, False)]:
             x, wq, ws, am, b = _matmul_inputs(m, k, n, x_dtype, g)
             b = b if bias else None
@@ -375,6 +377,56 @@ def test_int8_matmul_routes_agree_on_the_card():
     _, wq, ws, _, _ = _matmul_inputs(32, 2048, 512, torch.float32, g)
     am = x.abs().amax(dim=0)
     assert torch.equal(matmul_int8(x, wq, ws, am), matmul_int8_plain(x.contiguous(), wq, ws, am))
+
+
+@pytest.mark.cuda
+def test_int8_matmul_every_plan_agrees_on_the_card():
+    """K6 under every variant its plans can take, forced (ops/matmul_plan.py plan_for):
+    the bulk pipeline at 2 to 4 ring stages, the small
+    variant at 16, 32 and 64 rows and split over clusters of 1, 2, 4 and 8 blocks (and
+    its element path for an unaligned x), each bit for bit with the plain version at
+    ragged M, N and K, bf16 and f32 x and y."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diamond_tpu_torch import kernels
+    from diamond_tpu_torch.ops import kmajor_2d, matmul_int8_plain
+    from diamond_tpu_torch.ops import matmul_plan as mp
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    lib = kernels.lib()
+    cases = [(mp.BULK, 64, None, s) for s in (2, 3, 4)]
+    cases += [(mp.SMALL, bm, split, None) for bm in (16, 32, 64) for split in (1, 2, 4, 8)]
+    ran = set()
+    for m, k, n in [(128 * 65 + 1, 128, 70), (8191, 64, 24), (16 * 33 - 1, 2048, 5),
+                    (32 * 5 + 1, 512, 192)]:
+        for x_dtype, out_dtype in [(torch.bfloat16, torch.bfloat16), (torch.float32,
+                                                                       torch.float32)]:
+            x, wq, ws, am, b = _matmul_inputs(m, k, n, x_dtype, g)
+            wk = kmajor_2d(wq)
+            ref = matmul_int8_plain(x, wq, ws, am, b, out_dtype)
+            xu = torch.empty(m * k + 1, device="cuda", dtype=x_dtype)[1:].view(m, k)
+            xu.copy_(x)  # the same x at a base 2 or 4 bytes past 16-byte alignment
+            for variant, bm, split, stages in cases:
+                for xin, aligned in ((x, True), (xu, False)):
+                    xb, ob = x.element_size(), ref.element_size()
+                    if variant == mp.BULK and not mp.bulk_takes(m, k, n, k, xb, ob, aligned):
+                        continue
+                    p = mp.plan_for(m, k, n, k, xb, ob, aligned, variant, bm=bm, split=split,
+                                    stages=stages)
+                    if p.smem > mp.SMEM_BLOCK:
+                        continue
+                    y = torch.full_like(ref, float("nan"))
+                    kernels.check(lib.matmul_q8_fwd(
+                        xin.data_ptr(), am.data_ptr(), wk.data_ptr(), ws.data_ptr(),
+                        b.data_ptr(), y.data_ptr(), p.c_ints,
+                        torch.cuda.current_stream().cuda_stream), "matmul_q8_fwd")
+                    torch.cuda.synchronize()
+                    assert torch.equal(y, ref), (m, k, n, x_dtype, mp.describe(p), aligned)
+                    ran.add((p.variant, p.bm, p.split, p.stages, p.vec))
+    assert {(v, bm) for v, bm, *_ in ran} == {(v, bm) for v, bm, *_ in cases}
+    assert {s for v, _, s, _, _ in ran if v == mp.SMALL} == {1, 2, 4, 8}
+    assert {s for v, _, _, s, _ in ran if v == mp.BULK} == {2, 3, 4}
+    assert {vec for v, *_, vec in ran if v == mp.SMALL} == {0, 1}
 
 
 @pytest.mark.cuda

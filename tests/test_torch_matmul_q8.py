@@ -83,10 +83,10 @@ def test_matmul_codes_equal_jax(case):
 
 
 def test_matmul_int8_plain_takes_codes_strides_and_f32_or_bf16():
-    """matmul_int8 on the CPU is its plain version: int8 codes give the float x's result,
-    a row-strided x (a time step of a sequence) the contiguous one's, and a bf16 output
-    the f32 one rounded with the bias added in bf16; the K-major copy is w_q's columns,
-    zero-padded to 32."""
+    """matmul_int8 on the CPU is its plain version: int8 codes are refused (as on the
+    card), a row-strided x (a time step of a sequence) gives the contiguous one's result,
+    and a bf16 output the f32 one rounded with the bias added in bf16; the K-major copy is
+    w_q's columns, zero-padded to 32."""
     rng = np.random.default_rng(33)
     seq = t(_spread(rng, (3, 5, 40)))
     x = seq[:, 2]
@@ -96,7 +96,8 @@ def test_matmul_int8_plain_takes_codes_strides_and_f32_or_bf16():
     b = torch.randn(12)
     y = matmul_int8(x, wq, ws, am, b)
     assert torch.equal(y, matmul_int8_plain(x.contiguous(), wq, ws, am, b))
-    assert torch.equal(matmul_int8(quantize_static(x, am), wq, ws, None, b), y)
+    with pytest.raises(ValueError):
+        matmul_int8(quantize_static(x, am), wq, ws, am, b)
     ybf = matmul_int8(x, wq, ws, am, b, torch.bfloat16)
     nob = matmul_int8(x, wq, ws, am)
     assert torch.equal(ybf, nob.to(torch.bfloat16) + b.to(torch.bfloat16))
