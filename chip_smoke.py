@@ -75,8 +75,10 @@ result line):
      every component, horizon 15, 3 Euler steps, bf16, int8 rollout, device store), cut
      to three epochs (TRAINER_OVERRIDES): counts set to 0, the run, the counts read
      (every kernel > 0); the wall seconds of each part of each epoch (collection and
-     its env steps/s, each component's ms per step, IC-pool builds and swaps and
-     pool_refill_wait_s, recalibration, test collection, evaluation, checkpoint), the
+     its env steps/s, each component's ms per step, IC-pool builds and swaps,
+     pool_refill_wait_s and the pool's build seconds, their CPU seconds, the bytes
+     gathered and the waits on the build thread, recalibration, test collection,
+     evaluation, checkpoint), the
      final-protocol metrics; the rew/end windows that reach an episode's end (> 0);
      every AC step on int8 weights folded after the last world-model step; the last
      background IC pool against a synchronous rebuild from its ids and weight snapshot
@@ -2389,7 +2391,11 @@ def trainer_phase(smi):
         parts.append(f"the int8 check {fresh['check_s'].get(t['epoch'], 0.0):.3f} s apart")
         parts.append(f"recalibration {t.get('recalibration_s', 0.0):.3f} s")
         parts.append(f"pool builds {t.get('pool_builds')}, swaps {t.get('pool_swaps')}, "
-                     f"pool_refill_wait_s {t.get('pool_refill_wait_s', 0.0):.4f}")
+                     f"pool_refill_wait_s {t.get('pool_refill_wait_s', 0.0):.4f}, build "
+                     f"{t.get('pool_build_s', 0.0):.2f} s (CPU "
+                     f"{t.get('pool_build_cpu_s', 0.0):.2f} s), gathered "
+                     f"{t.get('pool_gather_bytes', 0) / 1e9:.2f} GB, waits "
+                     f"{t.get('pool_wait_s', 0.0):.4f} s")
         parts.append(f"test collect {t.get('test_collect_s', 0.0):.2f} s, eval "
                      f"{t.get('eval_s', 0.0):.2f} s, checkpoint {t['checkpoint_s']:.2f} s")
         log(f"[trainer] epoch {t['epoch']}: " + "; ".join(parts))

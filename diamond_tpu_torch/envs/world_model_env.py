@@ -60,6 +60,7 @@ from ..models.diffusion_sampler import DiffusionSampler
 from ..models.rew_end_model import RewEndModel
 from ..ops import quant
 from ..parallel.mesh import DataParallel
+from ..tracing import span, spanned
 
 
 @dataclass
@@ -161,6 +162,7 @@ class ImaginationEngine:
     # -- one world-model transition -------------------------------------------
 
     @torch.no_grad()
+    @spanned("wm::transition")
     def _wm_transition(self, st: ImagState, act: torch.Tensor, x_init: torch.Tensor,
                        gumbel_rew: torch.Tensor, gumbel_end: torch.Tensor):
         """Sample the next frame, predict and sample reward/end, roll the buffers.
@@ -188,6 +190,7 @@ class ImaginationEngine:
         return st, next_obs, rew, end, trunc
 
     @torch.no_grad()
+    @spanned("ac::reset")
     def _reset_dead(self, st: ImagState, pool: ICPool, dead: torch.Tensor
                     ) -> Tuple[ImagState, ICPool, torch.Tensor]:
         """Masked pool pull for dead envs: the k-th dead env (in global batch order)
@@ -212,6 +215,7 @@ class ImaginationEngine:
 
     # -- rollout ------------------------------------------------------------------
 
+    @spanned("ac::rollout")
     def rollout(self, st: ImagState, pool: ICPool, num_steps: int,
                 draws: Optional[RolloutDraws] = None,
                 generator: Optional[torch.Generator] = None
@@ -223,7 +227,8 @@ class ImaginationEngine:
 
         Returns (trajectory dict of (B, T) tensors, new state, new pool). Without
         ``draws`` the random numbers come from ``generator``; under data parallelism
-        they are the global batch's, and the rank takes its rows."""
+        they are the global batch's, and the rank takes its rows. Each call of the
+        policy is an ``ac::policy`` span."""
         ac = self.actor_critic
         b, n_cond = st.act_buffer.shape
         if draws is None:
@@ -238,11 +243,14 @@ class ImaginationEngine:
 
         # the current frame's features are carried from step to step: the next step's
         # main eval input is this step's final obs, or the IC's last frame after a reset
-        feat_cur = ac.encode(obs_to_float(st.obs_buffer[:, -1]))
+        with span("ac::policy"):
+            feat_cur = ac.encode(obs_to_float(st.obs_buffer[:, -1]))
         ys = []
         for t in range(num_steps):
-            out = ac.head(feat_cur, (st.ac_hx, st.ac_cx))
-            act = torch.argmax(out.logits_act + draws.gumbel_act[t], dim=-1).to(torch.int32)
+            with span("ac::policy"):
+                out = ac.head(feat_cur, (st.ac_hx, st.ac_cx))
+                act = torch.argmax(out.logits_act + draws.gumbel_act[t],
+                                   dim=-1).to(torch.int32)
 
             st2, next_obs, rew, end, trunc = self._wm_transition(
                 st, act, draws.x_init[t], draws.gumbel_rew[t], draws.gumbel_end[t])
@@ -250,24 +258,26 @@ class ImaginationEngine:
 
             # value of the final obs with the pre-reset policy carry, no grad (its
             # features feed the next step's main eval, with grad)
-            feat_next = ac.encode(next_obs)
-            with torch.no_grad():
-                val_final = ac.head(feat_next, out.carry).val
+            with span("ac::policy"):
+                feat_next = ac.encode(next_obs)
+                with torch.no_grad():
+                    val_final = ac.head(feat_next, out.carry).val
 
             st2 = replace(st2, ac_hx=out.carry[0], ac_cx=out.carry[1])
             st2, pool, ic_idx = self._reset_dead(st2, pool, dead)
 
             # policy-LSTM reset + burn-in over the new context frames from a zero state,
             # computed for all envs and applied to the dead ones
-            feats_ic = pool.feats[ic_idx] if pool.feats is not None \
-                else encode_context(st2.obs_buffer)
-            carry = (torch.zeros_like(st2.ac_hx), torch.zeros_like(st2.ac_cx))
-            for k in range(n_cond - 1):
-                carry = ac.head(feats_ic[:, k], carry).carry
-            m2 = dead[:, None]
-            st2 = replace(st2, ac_hx=torch.where(m2, carry[0], st2.ac_hx),
-                          ac_cx=torch.where(m2, carry[1], st2.ac_cx))
-            feat_cur = torch.where(m2, feats_ic[:, -1], feat_next)
+            with span("ac::policy"):
+                feats_ic = pool.feats[ic_idx] if pool.feats is not None \
+                    else encode_context(st2.obs_buffer)
+                carry = (torch.zeros_like(st2.ac_hx), torch.zeros_like(st2.ac_cx))
+                for k in range(n_cond - 1):
+                    carry = ac.head(feats_ic[:, k], carry).carry
+                m2 = dead[:, None]
+                st2 = replace(st2, ac_hx=torch.where(m2, carry[0], st2.ac_hx),
+                              ac_cx=torch.where(m2, carry[1], st2.ac_cx))
+                feat_cur = torch.where(m2, feats_ic[:, -1], feat_next)
 
             ys.append(dict(act=act, rew=rew, end=end, trunc=trunc, logits_act=out.logits_act,
                            val=out.val, val_final=val_final, dead=dead))
@@ -276,7 +286,7 @@ class ImaginationEngine:
         traj = {k: torch.stack([y[k] for y in ys], dim=1) for k in ys[0]}
         # bootstrap values, detached: the next step's value, or the final-obs value where
         # the env died
-        with torch.no_grad():
+        with torch.no_grad(), span("ac::policy"):
             val_extra = ac.head(feat_cur, (st.ac_hx, st.ac_cx)).val
         val_next = torch.cat([traj["val"][:, 1:].detach(), val_extra[:, None]], dim=1)
         traj["val_bootstrap"] = torch.where(traj["dead"], traj["val_final"], val_next)
@@ -315,6 +325,14 @@ class PoolManager:
     (``last_refill_wait_s``). A failed background build is raised by the next
     ``ensure`` or ``wait_pending``, never swallowed. ``last_ids``: the segment ids of
     the last build, chunk by chunk, so that a check can rebuild it (``build_pool(ids)``).
+
+    Counters, host sums that never synchronise: ``build_s``, the wall seconds of every
+    build on the thread that made it; ``build_cpu_s``, that thread's CPU seconds over
+    them (``time.thread_time``: an upper bound on the interpreter time a background
+    build takes from the caller); ``gather_bytes``, the bytes of segments (frames and
+    actions) gathered from the store or uploaded from the host; ``wait_s``, every second
+    a caller blocked on the build thread (``wait_pending``, the swap's included). Spans:
+    ``pool::ensure``, ``pool::build`` (on the thread that builds), ``pool::wait``.
     """
 
     def __init__(self, engine: ImaginationEngine, dataset, sampler, pool_size: int,
@@ -330,6 +348,9 @@ class PoolManager:
         self.policy_feats = policy_feats
         self.last_refill_wait_s = 0.0
         self.builds = self.background_builds = self.swaps = 0
+        self.build_s = self.build_cpu_s = self.wait_s = 0.0
+        self.gather_bytes = 0
+        self._count_lock = threading.Lock()  # builds may run on two threads at once
         self.last_ids: List[list] = []
         # the snapshot copies: no quant collection (the burn-in runs unquantized), no grad
         self.rew_end = copy.deepcopy(engine.rew_end_model)
@@ -359,7 +380,20 @@ class PoolManager:
     def build_pool(self, ids: Optional[List[list]] = None) -> ICPool:
         """A pool from the snapshot models: ``pool_size`` segments drawn chunk by chunk
         (or the given ``ids``), burned in, with their policy features if asked."""
+        t0, c0 = time.perf_counter(), time.thread_time()
+        with span("pool::build"):
+            pool, nbytes = self._build(ids)
+        with self._count_lock:
+            self.builds += 1
+            self.build_s += time.perf_counter() - t0
+            self.build_cpu_s += time.thread_time() - c0
+            self.gather_bytes += nbytes
+        return pool
+
+    def _build(self, ids: Optional[List[list]]) -> Tuple[ICPool, int]:
+        """(the pool, the bytes of segments gathered for it)."""
         obs_l, act_l, hx_l, cx_l, f_l, used = [], [], [], [], [], []
+        nbytes = 0
         remaining = self.pool_size
         while remaining > 0:
             n = min(self.chunk, remaining)
@@ -374,6 +408,7 @@ class PoolManager:
                 dev = next(self.rew_end.net.parameters()).device
                 obs = torch.from_numpy(b.obs).to(dev)
                 act = torch.from_numpy(b.act.astype(np.int32)).to(dev)
+            nbytes += obs.numel() * obs.element_size() + act.numel() * act.element_size()
             hx, cx = self._prepare(obs, act)
             obs_l.append(obs)
             act_l.append(act)
@@ -383,11 +418,10 @@ class PoolManager:
                 f_l.append(encode_pool_feats(self.ac, obs))
             remaining -= n
         self.last_ids = used
-        self.builds += 1
         return ICPool(obs=torch.cat(obs_l), act=torch.cat(act_l), hx=torch.cat(hx_l),
                       cx=torch.cat(cx_l),
                       ptr=torch.zeros((), dtype=torch.long, device=obs_l[0].device),
-                      feats=torch.cat(f_l) if f_l else None)
+                      feats=torch.cat(f_l) if f_l else None), nbytes
 
     def _kick(self) -> None:
         """Snapshot the live weights now and build the next pool on a thread."""
@@ -414,12 +448,16 @@ class PoolManager:
         """Block until a background build has finished; call before mutating the
         dataset the sampler reads."""
         if self._pending is not None:
-            self._pending.join()
+            t0 = time.perf_counter()
+            with span("pool::wait"):
+                self._pending.join()
+            self.wait_s += time.perf_counter() - t0
             if self._pending_error is not None:
                 e, self._pending_error = self._pending_error, None
                 self._pending, self._next_pool = None, None
                 raise RuntimeError("background IC-pool build failed") from e
 
+    @spanned("pool::ensure")
     def ensure(self, pool: Optional[ICPool], max_consumption: int
                ) -> Tuple[ICPool, bool]:
         """(pool, swapped): a pool with at least ``max_consumption`` unconsumed entries."""

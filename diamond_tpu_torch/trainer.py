@@ -51,13 +51,19 @@ same order on every rank.
 Metrics stay on the device during a component's steps and are read with one copy per
 key at its end (``_materialize_logs``). ``timings`` holds the wall seconds of each part
 of the run (the card synchronised at the parts' boundaries only): one entry for the
-initial collection (epoch 0), one per epoch, one for the final collection.
+initial collection (epoch 0), one per epoch, one for the final collection. Where the IC
+pool runs, an epoch's entry adds the pool manager's builds, swaps and, as that epoch's
+deltas, its counters (``pool_build_s``, ``pool_build_cpu_s``, ``pool_gather_bytes``,
+``pool_wait_s``; the last wait on the build thread goes to the last entry). Each part is a
+``trainer::<key>`` span (tracing.py) in the epoch-1 trace of ``tpu.profile_dir``, which
+records every thread where torch can.
 
 Not ported: the host RSS guard.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import random
@@ -84,6 +90,7 @@ from .envs.world_model_env import ImaginationEngine, PoolManager
 from .models.agent import Agent
 from .ops import quant
 from .parallel import DataParallel, replicate, replicate_pool
+from .tracing import all_threads, span
 from .training import (OptimizerSpec, TrainState, make_ac_train_step,
                        make_denoiser_eval_step, make_denoiser_train_step,
                        make_model_free_ac_train_step, make_rew_end_eval_step,
@@ -264,6 +271,7 @@ class Trainer:
         self.num_batch_test = {name: 0 for name in self.model_names}
         self.timings: List[Dict[str, Any]] = []
         self._timing: Dict[str, Any] = {}
+        self._pool_counted: Dict[str, Any] = {}
 
         if cfg.common.resume:
             self.load_state_checkpoint()
@@ -282,12 +290,25 @@ class Trainer:
         if self._main:
             print(*args)
 
-    def _timed(self, key: str, t0: float) -> None:
-        """Add the wall seconds since ``t0`` (the card synchronised) to this part's
-        ``key``."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    @contextlib.contextmanager
+    def _part(self, key: str):
+        """A ``trainer::<key>`` span whose wall seconds (the card synchronised at its
+        end) add to this part's ``key``."""
+        t0 = time.perf_counter()
+        with span(f"trainer::{key}"):
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         self._timing[key] = self._timing.get(key, 0.0) + time.perf_counter() - t0
+
+    def _add_pool_counters(self, timing: Dict[str, Any]) -> None:
+        """Add the pool manager's counters since the last call to ``timing``."""
+        pm = self._pool_manager
+        now = dict(pool_build_s=pm.build_s, pool_build_cpu_s=pm.build_cpu_s,
+                   pool_gather_bytes=pm.gather_bytes, pool_wait_s=pm.wait_s)
+        for k, v in now.items():
+            timing[k] = timing.get(k, 0) + v - self._pool_counted.get(k, 0)
+        self._pool_counted = now
 
     def _calibrate_if_stale(self) -> None:
         """With tpu.int8_rollout: calibrate the denoiser (one sampling pass) and the
@@ -300,21 +321,23 @@ class Trainer:
         if d_step == self._quant_step and r_step == self._r_quant_step:
             return
         t0 = time.perf_counter()
-        st = self._imag_state
-        obs_f = obs_to_float(st.obs_buffer)
-        if d_step != self._quant_step:
-            # the sampler's initial latents at the global batch, this rank's rows
-            b, dp = obs_f.shape[0], self._dp
-            x_init = dp.take(torch.randn((b * dp.world,) + tuple(obs_f.shape[2:]),
-                                         generator=self._gens["rollout"], device=self.device))
-            self.engine.sampler.calibrate(obs_f, st.act_buffer, self._int8_sites,
-                                          x_init=x_init, dp=dp)
-            self._quant_step = d_step
-        if r_step != self._r_quant_step:
-            self.agent.rew_end_model.calibrate(obs_f[:, -2:-1], st.act_buffer[:, -2:-1],
-                                               obs_f[:, -1:], self._int8_sites, dp=self._dp)
-            self._r_quant_step = r_step
-        self._timed("recalibration_s", t0)
+        with self._part("recalibration_s"):
+            st = self._imag_state
+            obs_f = obs_to_float(st.obs_buffer)
+            if d_step != self._quant_step:
+                # the sampler's initial latents at the global batch, this rank's rows
+                b, dp = obs_f.shape[0], self._dp
+                x_init = dp.take(torch.randn((b * dp.world,) + tuple(obs_f.shape[2:]),
+                                             generator=self._gens["rollout"],
+                                             device=self.device))
+                self.engine.sampler.calibrate(obs_f, st.act_buffer, self._int8_sites,
+                                              x_init=x_init, dp=dp)
+                self._quant_step = d_step
+            if r_step != self._r_quant_step:
+                self.agent.rew_end_model.calibrate(obs_f[:, -2:-1], st.act_buffer[:, -2:-1],
+                                                   obs_f[:, -1:], self._int8_sites,
+                                                   dp=self._dp)
+                self._r_quant_step = r_step
         self.calibrations.append(dict(epoch=self.epoch, denoiser_step=d_step,
                                       rew_end_step=r_step))
         self._print(f"int8 recalibrated at denoiser step {d_step}, rew/end step {r_step} "
@@ -378,13 +401,13 @@ class Trainer:
                 self.num_epochs_collect = 0
             else:
                 self._timing = {"epoch": 0}
-                t0 = time.perf_counter()
-                if self._main:
-                    self.num_epochs_collect, logs = self.collect_initial_dataset()
-                    to_log += logs
-                self.num_epochs_collect = self._dp.broadcast_object(self.num_epochs_collect)
-                self._share_train_dataset()
-                self._timed("collect_s", t0)
+                with self._part("collect_s"):
+                    if self._main:
+                        self.num_epochs_collect, logs = self.collect_initial_dataset()
+                        to_log += logs
+                    self.num_epochs_collect = self._dp.broadcast_object(
+                        self.num_epochs_collect)
+                    self._share_train_dataset()
                 self._timing["collect_steps"] = self.train_dataset.num_steps
                 self.timings.append(self._timing)
 
@@ -402,7 +425,7 @@ class Trainer:
                 acts = [torch.profiler.ProfilerActivity.CPU]
                 if self.device.type == "cuda":
                     acts.append(torch.profiler.ProfilerActivity.CUDA)
-                prof = torch.profiler.profile(activities=acts)
+                prof = torch.profiler.profile(activities=acts, experimental_config=all_threads())
                 prof.start()
 
             should_collect_train = (not self._is_model_free and not self._is_static_dataset
@@ -411,13 +434,12 @@ class Trainer:
                 if self._pool_manager is not None:
                     # the pool builder samples the train dataset: let it finish first
                     self._pool_manager.wait_pending()
-                t0 = time.perf_counter()
                 n0 = self.train_dataset.num_steps
-                if self._main:
-                    to_log += self._train_collector.send(
-                        NumToCollect(steps=cfg.collection.train.steps_per_epoch))
-                self._share_train_dataset()
-                self._timed("collect_s", t0)
+                with self._part("collect_s"):
+                    if self._main:
+                        to_log += self._train_collector.send(
+                            NumToCollect(steps=cfg.collection.train.steps_per_epoch))
+                    self._share_train_dataset()
                 self._timing["collect_steps"] = self.train_dataset.num_steps - n0
 
             if cfg.training.should:
@@ -426,13 +448,11 @@ class Trainer:
             should_test = (cfg.evaluation.should and self.epoch % cfg.evaluation.every == 0
                            and self._main)
             if should_test and not self._is_static_dataset:
-                t0 = time.perf_counter()
-                to_log += self.collect_test()
-                self._timed("test_collect_s", t0)
+                with self._part("test_collect_s"):
+                    to_log += self.collect_test()
             if should_test and not self._is_model_free:
-                t0 = time.perf_counter()
-                to_log += self.test_agent()
-                self._timed("eval_s", t0)
+                with self._part("eval_s"):
+                    to_log += self.test_agent()
 
             if prof is not None:
                 prof.stop()
@@ -443,22 +463,23 @@ class Trainer:
             if self.logger is not None:
                 self.logger.log(to_log, self.epoch)
             to_log = []
-            t0 = time.perf_counter()
-            self.save_checkpoint()
-            self._timed("checkpoint_s", t0)
+            with self._part("checkpoint_s"):
+                self.save_checkpoint()
             if self._pool_manager is not None:
                 pm = self._pool_manager
                 self._timing.update(pool_builds=pm.builds, pool_swaps=pm.swaps)
+                self._add_pool_counters(self._timing)
             self.timings.append(self._timing)
 
         if not self._is_static_dataset and self._main:
-            t0 = time.perf_counter()
             self._timing = {"epoch": "final"}
-            self.logger.log(self.collect_test(final=True), self.epoch)
-            self._timed("test_collect_s", t0)
+            with self._part("test_collect_s"):
+                self.logger.log(self.collect_test(final=True), self.epoch)
             self.timings.append(self._timing)
         if self._pool_manager is not None:
             self._pool_manager.wait_pending()
+            if self.timings:
+                self._add_pool_counters(self.timings[-1])
         self._dp.barrier()  # the ranks end with rank 0's final protocol
 
     # -- collection -----------------------------------------------------------
@@ -535,9 +556,8 @@ class Trainer:
             c = getattr(self._cfg, name).training
             if self.epoch > c.start_after_epochs:
                 steps = c.steps_first_epoch if self.epoch == 1 else c.steps_per_epoch
-                t0 = time.perf_counter()
-                to_log += self.train_component(name, steps)
-                self._timed(f"{name}_s", t0)
+                with self._part(f"{name}_s"):
+                    to_log += self.train_component(name, steps)
                 self._timing[f"{name}_steps"] = c.grad_acc_steps * steps
         return to_log
 

@@ -34,6 +34,10 @@ optimizer's ``dp`` sums each step's gradient over the ranks before the clip; a s
 its rank's rows of a global batch (``DeviceBatch.mask_global`` beside them) and divides
 its masked sums by the global counts; draws have global shapes, and each rank takes its
 rows. Without a process group every step is the single-card path.
+
+Spans (tracing.py): every step's backward pass is ``train::backward`` and its update
+``train::update`` (PyTorch's own ``Optimizer.step#AdamW.step`` inside it); the
+actor-critic's loss on its rollout is ``ac::loss``.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from .models.denoiser import (Denoiser, DenoiserDraws, downsample_avg, draw_loss
                               quantize_to_uint8_grid)
 from .models.rew_end_model import RewEndModel
 from .parallel.mesh import DataParallel
+from .tracing import span, spanned
 
 
 @dataclass
@@ -108,6 +113,7 @@ class OptimizerSpec:
                              self.lr_warmup_steps, self.grad_acc_steps, self.grad_acc_sum, dp)
 
 
+@spanned("train::update")
 def apply_update(tx: AdamWClip, state: TrainState) -> Tuple[TrainState, torch.Tensor]:
     """One train step's update from the gradients in the parameters' ``.grad`` (summed
     over the ranks first under data parallelism): the chain's update, or under gradient
@@ -199,7 +205,8 @@ def _make_diffusion_step(model: Denoiser, tx: AdamWClip, loss_fn: Callable,
         state.opt_state.zero_grad(set_to_none=True)
         with torch.enable_grad():
             loss, metrics = loss_fn(batch, draws, generator, tx.dp)
-            loss.backward()
+            with span("train::backward"):
+                loss.backward()
         state, grad_norm = apply_update(tx, state)
         metrics["grad_norm_before_clip"] = grad_norm
         return state, metrics
@@ -289,7 +296,8 @@ def make_rew_end_train_step(rew_end_model: RewEndModel, tx: AdamWClip) -> Callab
         state.opt_state.zero_grad(set_to_none=True)
         with torch.enable_grad():
             loss, metrics = _rew_end_loss(rew_end_model, batch)
-            loss.backward()
+            with span("train::backward"):
+                loss.backward()
         state, grad_norm = apply_update(tx, state)
         metrics["grad_norm_before_clip"] = grad_norm
         return state, metrics
@@ -325,11 +333,12 @@ def ac_rollout_loss(engine: ImaginationEngine, actor_critic: ActorCritic,
     metrics, st, pool, trajectory)."""
     traj, st, pool = engine.rollout(st, pool, loss_cfg.backup_every, draws=draws,
                                     generator=generator)
-    loss, metrics = actor_critic.loss_from_rollout(
-        traj["act"], traj["rew"], traj["end"].float(), traj["trunc"].float(),
-        traj["logits_act"], traj["val"], traj["val_bootstrap"], loss_cfg,
-        traj["act"].numel() * engine.dp.world)
-    metrics["imagination_deaths"] = traj["dead"].sum()
+    with span("ac::loss"):
+        loss, metrics = actor_critic.loss_from_rollout(
+            traj["act"], traj["rew"], traj["end"].float(), traj["trunc"].float(),
+            traj["logits_act"], traj["val"], traj["val_bootstrap"], loss_cfg,
+            traj["act"].numel() * engine.dp.world)
+        metrics["imagination_deaths"] = traj["dead"].sum()
     return loss, metrics, st, pool, traj
 
 
@@ -354,7 +363,8 @@ def make_ac_train_step(engine: ImaginationEngine, actor_critic: ActorCritic, tx:
         with torch.enable_grad():
             loss, metrics, st, pool, _ = ac_rollout_loss(engine, actor_critic, loss_cfg, st,
                                                          pool, draws, generator)
-            loss.backward()
+            with span("train::backward"):
+                loss.backward()
         state, grad_norm = apply_update(tx, state)
         metrics["grad_norm_before_clip"] = grad_norm
         return state, st, pool, metrics
@@ -414,7 +424,8 @@ def make_model_free_ac_train_step(actor_critic: ActorCritic, tx: AdamWClip,
             loss, metrics = model_free_ac_loss(actor_critic, loss_cfg, obs_u8, act, rew, end,
                                                trunc, reset_mask, hx0, cx0, val_bootstrap,
                                                act.numel() * tx.dp.world)
-            loss.backward()
+            with span("train::backward"):
+                loss.backward()
         state, grad_norm = apply_update(tx, state)
         metrics["grad_norm_before_clip"] = grad_norm
         return state, metrics

@@ -2,7 +2,7 @@
 mode asks for it), the rotation of the weights-only agent snapshots, the confusion
 matrix of the rew/end loss (on the device) and the per-class precision, recall and F1
 computed from it (on the host), the final-evaluation protocol's numbers, the pickle I/O
-of the dataset's state, seeding, the finished-run guard and a timer.
+of the dataset's state, seeding and the finished-run guard.
 """
 
 from __future__ import annotations
@@ -165,15 +165,6 @@ def try_until_no_except(func: Callable) -> None:
             continue
         else:
             break
-
-
-class Timer:
-    def __enter__(self) -> "Timer":
-        self.start = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc: Any) -> None:
-        self.elapsed = time.perf_counter() - self.start
 
 
 # ---------------------------------------------------------------------------

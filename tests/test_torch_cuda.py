@@ -1056,6 +1056,41 @@ def test_trainer_runs_on_the_card_and_resumes(tmp_path, mode):
     assert resumed.epoch == 3
 
 
+@pytest.mark.cuda
+def test_trainer_epoch_1_trace_on_the_card(tmp_path):
+    """``tpu.profile_dir`` on the card: the epoch-1 trace holds the device's kernels, the
+    trainer's parts and the program's spans, the IC pool's background build on its own
+    thread among them; each epoch's timings hold the pool's counters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import json
+
+    from diamond_tpu_torch.config import load_config
+    from diamond_tpu_torch.trainer import Trainer
+
+    run_dir = tmp_path / "run"
+    run_dir.mkdir()
+    trainer = Trainer(load_config(TRAINER_TINY + [f"tpu.profile_dir={tmp_path / 'prof'}"]),
+                      run_dir, run_dir=run_dir)
+    trainer.run()
+    events = json.loads((tmp_path / "prof" / "epoch_1_trace.json").read_text())["traceEvents"]
+    by_name = {}
+    for e in events:
+        by_name.setdefault(e.get("name"), []).append(e)
+    assert any(e.get("cat") == "kernel" for e in events)
+    assert {"trainer::collect_s", "trainer::actor_critic_s", "pool::ensure", "ac::rollout",
+            "wm::transition", "ac::policy", "ac::loss", "train::backward",
+            "train::update"} <= set(by_name)
+    tids = lambda name: {e["tid"] for e in by_name.get(name, [])  # noqa: E731
+                         if e.get("cat") == "user_annotation"}
+    caller = tids("pool::ensure")
+    # the first build on the caller's thread, the next ones on build threads
+    assert tids("pool::build") & caller and tids("pool::build") - caller, by_name["pool::build"]
+    epoch_1 = trainer.timings[1]
+    assert epoch_1["epoch"] == 1 and epoch_1["pool_builds"] >= 2
+    assert epoch_1["pool_gather_bytes"] > 0 and epoch_1["pool_build_s"] > 0
+
+
 # ---------------------------------------------------------------------------
 # The two-stage (csgo) world model: its shapes, a play step, its train steps, its trainer
 

@@ -180,7 +180,8 @@ def test_port_imports_no_jax_and_no_yaml():
                "diamond_tpu_torch.data.episode", "diamond_tpu_torch.data.segment",
                "diamond_tpu_torch.data.dataset", "diamond_tpu_torch.data.batch_sampler",
                "diamond_tpu_torch.data.device_store", "diamond_tpu_torch.data.traverser",
-               "diamond_tpu_torch.utils", "diamond_tpu_torch.training",
+               "diamond_tpu_torch.utils", "diamond_tpu_torch.tracing",
+               "diamond_tpu_torch.training",
                "diamond_tpu_torch.envs.world_model_env",
                "diamond_tpu_torch.interop.jax_vars",
                "diamond_tpu_torch.envs.env", "diamond_tpu_torch.envs.fake_env",

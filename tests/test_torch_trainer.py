@@ -288,11 +288,20 @@ def metrics(run_dir):
     return [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
 
 
+def trace_names(profile_dir):
+    """The names of the events in the epoch-1 trace of ``tpu.profile_dir``."""
+    trace = json.loads((profile_dir / "epoch_1_trace.json").read_text())
+    return {e.get("name") for e in trace["traceEvents"]}
+
+
 @pytest.fixture(scope="module")
 def imagination_run(tmp_path_factory):
     run_dir = tmp_path_factory.mktemp("run")
-    trainer = make_trainer(run_dir, keep_saves=True, check_int8=True)
+    profile_dir = tmp_path_factory.mktemp("profile")
+    trainer = make_trainer(run_dir, [f"tpu.profile_dir={profile_dir}"], keep_saves=True,
+                           check_int8=True)
     trainer.run()
+    trainer.profile_dir = profile_dir
     return trainer, run_dir
 
 
@@ -329,6 +338,30 @@ def test_every_ac_step_rolls_out_on_freshly_folded_int8_weights(imagination_run)
     assert [c["rew_end_step"] for c in trainer.calibrations] == [3, 5, 7]
 
 
+def test_the_epoch_1_trace_and_timings_place_the_imagination_work(imagination_run):
+    """The epoch-1 trace holds the trainer's parts and the program's spans; each epoch's
+    timings hold the pool manager's counters as deltas that sum to its totals, and the
+    waits on the build thread before each collection are counted."""
+    trainer, _ = imagination_run
+    names = trace_names(trainer.profile_dir)
+    assert {"trainer::collect_s", "trainer::denoiser_s", "trainer::rew_end_model_s",
+            "trainer::actor_critic_s", "trainer::recalibration_s"} <= names
+    assert {"pool::ensure", "pool::build", "ac::rollout", "wm::transition", "ac::policy",
+            "ac::reset", "ac::loss", "train::backward", "train::update"} <= names
+    pm = trainer._pool_manager
+    keys = ("pool_build_s", "pool_build_cpu_s", "pool_gather_bytes", "pool_wait_s")
+    epochs = [t for t in trainer.timings if isinstance(t["epoch"], int) and t["epoch"] > 0]
+    assert len(epochs) == 3 and all(set(keys) <= set(t) for t in epochs)
+    total = lambda k: sum(t.get(k, 0) for t in trainer.timings)  # noqa: E731
+    assert total("pool_gather_bytes") == pm.gather_bytes > 0
+    assert pm.gather_bytes % (pm.builds * pm.pool_size) == 0
+    for k, attr in zip(keys, ("build_s", "build_cpu_s", "gather_bytes", "wait_s")):
+        assert total(k) == pytest.approx(getattr(pm, attr), rel=1e-9, abs=1e-12), k
+    assert epochs[0]["pool_build_s"] > 0 and epochs[0]["pool_gather_bytes"] > 0
+    # epochs 2 and 3 collect after waiting on the background build of the epoch before
+    assert all(t["pool_wait_s"] > 0 for t in epochs[1:])
+
+
 def test_resume_equals_the_saved_state(imagination_run):
     trainer, run_dir = imagination_run
     resumed = make_trainer(run_dir, ["common.resume=True"])
@@ -362,6 +395,10 @@ def test_model_free_mode(tmp_path):
                                       f"tpu.profile_dir={tmp_path / 'profile'}"])
     trainer.run()
     assert (tmp_path / "profile" / "epoch_1_trace.json").is_file()
+    names = trace_names(tmp_path / "profile")
+    assert {"trainer::actor_critic_s", "train::backward", "train::update"} <= names
+    assert not {"ac::rollout", "pool::ensure"} & names  # no imagination, no pool
+    assert all(not any(k.startswith("pool_") for k in t) for t in trainer.timings)
     assert trainer.num_epochs_collect == 0 and trainer.epoch == 2
     assert trainer.train_states["actor_critic"].step == 2 + 2
     assert trainer.train_states["denoiser"].step == 0
