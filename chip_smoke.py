@@ -729,9 +729,9 @@ def conv_blocks(name, args) -> int:
         return conv_plan.k3_plan(b, h, w, cin, args[1].shape[2], 1).grid
     if name == "conv3x3_dgrad_s2":
         return conv_plan.dgrad_s2_plan(b, *args[2], args[1].shape[2], cin).grid
-    if name == "conv3x3_int8":
-        return conv_plan.k5_plan(b, h, w, cin, args[1].shape[-1], args[5],
-                                 x.dtype == torch.int8).grid
+    if name == "conv3x3_int8":  # the route's plan (conv_plan.k5_route)
+        return conv_plan.k5_route(b, h, w, cin, args[1].shape[-1], args[5], x.element_size(),
+                                  torch.empty((), dtype=args[6]).element_size()).grid
     return conv_plan.k3_plan(b, h, w, cin, args[1].shape[-1], args[3]).grid
 
 
@@ -1295,7 +1295,8 @@ def drive(engine, st, pool, gen, label, smi):
     log(f"[rollout] {label}: imagination_fps_batch32_n3 = {fps:.1f} env_frames/s "
         f"({secs / TIMED_ROLLOUTS * 1e3:.1f} ms per B={BATCH} T={HORIZON} rollout, pool "
         f"features precomputed) on {smi}")
-    log(f"[launches] {label}, over {1 + TIMED_ROLLOUTS} rollouts: {launches}")
+    log(f"[launches] {label}, over {1 + TIMED_ROLLOUTS} rollouts: {launches}; K5 by route "
+        f"{dict(ops.conv3x3_int8.routes)}")
     for name, (_, _, paths) in KERNELS.items():
         if label in paths:
             check(launches[name] > 0, f"{name} was not launched on the {label} path")
@@ -1413,6 +1414,7 @@ def count_reset() -> None:
     for name in KERNELS:
         getattr(ops, name).launches = 0
         getattr(ops, name).shapes.clear()
+    ops.conv3x3_int8.routes.clear()
 
 
 def ac_step_phase(engine, agent, st, pool, gen, smi):

@@ -45,6 +45,8 @@ _SIGNATURES = {
     "groupnorm_silu_q8_fwd": (_P, _P, _P, _I, _P, _P, _P, _P),
     # x, x_dtype, act_max, w_k, w_scale, sample_scale, bias, y, out_dtype, plan, stream
     "conv3x3_q8_fwd": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P),
+    # the same, plan: ops/conv_plan.py PIPE_FIELDS (K5's pipeline route)
+    "conv3x3_q8_pipe_fwd": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P),
     # x, act_max, w_k, w_scale, bias, y, plan (ops/matmul_plan.py), stream
     "matmul_q8_fwd": (_P, _P, _P, _P, _P, _P, _P, _P),
     # x, x_dtype, numel, partial maxima (scratch), q, scale, B, stream

@@ -8,16 +8,19 @@ with the int8 sums taken exactly in float64.
 
 The A operand is int8 codes, or bf16/f32 values quantized as they are loaded with the
 static scale s_c = max(act_max, 1e-8) * 1.05 / 127 of their channel (``quantize_static``).
-Every shape runs the halo-tile wgmma kernel (``kernels/csrc/conv_halo.cuh``) on the launch
-plan of ``conv_plan.k5_plan``; Cin that is not a multiple of 32 is zero-padded in it. The
-kernel reads the weights as ``kmajor_weights(w_q)``, which the int8 sites make once when
-their collection is installed (``quant.install``, the ``w_k`` buffer) and the wrapper
-otherwise makes per call.
-The epilogue is f32(acc) * w_scale[n] (times sample_scale[b] for a QTensor), then in
-``out_dtype`` plus the bias rounded to ``out_dtype``.
+A call takes one of two routes, chosen from its shape by ``conv_plan.k5_route``: the
+pipeline (``kernels/csrc/conv_pipe.cuh``: TMA copies into a ring, a producer warpgroup, up
+to four consumer warpgroups) where it has at least ``conv_plan.PIPE_MIN_M`` output pixels
+and its shape allows it, else the halo-tile wgmma kernel (``kernels/csrc/conv_halo.cuh``)
+on the plan of ``conv_plan.k5_plan``. The two give the same bits. Cin that is not a
+multiple of 32 is zero-padded in both. The kernels read the weights as
+``kmajor_weights(w_q)``, which the int8 sites make once when their collection is
+installed (``quant.install``, the ``w_k`` buffer) and the wrapper otherwise makes per
+call. The epilogue is f32(acc) * w_scale[n] (times sample_scale[b] for a QTensor), then
+in ``out_dtype`` plus the bias rounded to ``out_dtype``.
 
-``conv3x3_int8.launches`` counts kernel launches and ``conv3x3_int8.shapes`` the call
-signatures.
+``conv3x3_int8.launches`` counts kernel launches, ``conv3x3_int8.routes`` the launches
+of each route ("halo", "pipe") and ``conv3x3_int8.shapes`` the call signatures.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from .conv_plan import channels_padded, k5_plan
+from .conv_plan import channels_padded, k5_route
 
 # Calibration records the exact observed max; the run-time distribution gets a little
 # room (diamond_tpu/ops/quant.py; kernels/csrc/q8_common.cuh static_scale).
@@ -100,9 +103,11 @@ def conv3x3_int8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                  act_max: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
                  stride: int = 1, out_dtype: torch.dtype = torch.float32,
                  sample_scale: Optional[torch.Tensor] = None,
-                 w_k: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 w_k: Optional[torch.Tensor] = None, plan=None) -> torch.Tensor:
     """The int8 3x3 SAME conv of ``conv3x3_int8_plain``'s contract; ``w_k``:
-    ``kmajor_weights(w_q)`` where the caller keeps it (else made here)."""
+    ``kmajor_weights(w_q)`` where the caller keeps it (else made here); ``plan``: a plan
+    of this call's shape on either route (``conv_plan.k5_plan``, ``pipe_plan``) in place
+    of ``k5_route``'s (tests and timings)."""
     if x.device.type == "cpu":
         return conv3x3_int8_plain(x, w_q, w_scale, act_max, bias, stride, out_dtype,
                                   sample_scale)
@@ -145,17 +150,22 @@ def conv3x3_int8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
         sample_scale = f32(sample_scale.reshape(-1), (b,), "sample_scale")
     y = torch.empty((b, (h - 1) // stride + 1, (w - 1) // stride + 1, cout), device=x.device,
                     dtype=out_dtype)
+    if plan is None:
+        plan = k5_route(b, h, w, cin, cout, stride, x.element_size(), y.element_size())
+    lib = kernels.lib()
+    launch = lib.conv3x3_q8_pipe_fwd if plan.route == "pipe" else lib.conv3x3_q8_fwd
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    kernels.check(kernels.lib().conv3x3_q8_fwd(
+    kernels.check(launch(
         x.data_ptr(), _X_CODES[x.dtype], ptr(act_max), w_k.data_ptr(), w_scale.data_ptr(),
-        ptr(sample_scale), ptr(bias), y.data_ptr(), _OUT_CODES[out_dtype],
-        k5_plan(b, h, w, cin, cout, stride, x.dtype == torch.int8).c_ints,
+        ptr(sample_scale), ptr(bias), y.data_ptr(), _OUT_CODES[out_dtype], plan.c_ints,
         kernels.stream(x.device)), "conv3x3_int8")
     conv3x3_int8.launches += 1
+    conv3x3_int8.routes[plan.route] += 1
     conv3x3_int8.shapes[(tuple(x.shape), str(x.dtype), cout, stride, bias is not None,
                          sample_scale is not None, str(out_dtype))] += 1
     return y
 
 
 conv3x3_int8.launches = 0
+conv3x3_int8.routes = Counter()
 conv3x3_int8.shapes = Counter()

@@ -72,6 +72,8 @@ class ConvPlan:
     grid: int
     c_ints: object = field(default=None, compare=False, repr=False)
 
+    route = "halo"
+
     def __post_init__(self):
         vals = [getattr(self, f) for f in PLAN_FIELDS]
         object.__setattr__(self, "c_ints", (ctypes.c_int * len(vals))(*vals))
@@ -158,9 +160,222 @@ def k3_plan(b, h, w, cin, cout, stride) -> ConvPlan:
 
 
 def k5_plan(b, h, w, cin, cout, stride, x_is_int8: bool) -> ConvPlan:
-    """K5's plan: an int8 halo tile, from int8 codes or quantized from a float x as it
-    loads."""
+    """K5's plan on the halo route: an int8 halo tile, from int8 codes or quantized from a
+    float x as it loads."""
     return conv_plan(b, h, w, cin, cout, stride, 1, not x_is_int8)
+
+
+# ---------------------------------------------------------------------------
+# K5's pipeline route (kernels/csrc/conv_pipe.cuh)
+
+PIPE_MIN_M = 32_768      # output pixels B * Ho * Wo from which K5 takes the pipeline
+PIPE_CONSUMER_WARPS = 16  # four consumer warpgroups (then one producer warpgroup)
+PIPE_BARRIER_BYTES = 256
+PIPE_STAGES = (4, 3)     # the int8 ring's depth: the deepest that fits, at least 3
+PIPE_SRC_STAGES = (2, 1)  # the ring of x as the TMA copies land it (2 where they fit)
+PIPE_TILE_MTILES = (4, 2, 1)  # 64-pixel wgmma M-tiles a tile holds: the most that fit
+PIPE_BOX_MAX = 256       # a TMA box's extent in each dimension
+
+
+@dataclass(frozen=True)
+class PipePlan:
+    """The ints conv_pipe.cuh's ``PipePlan`` reads, in this order.
+
+    A tile is ``tb`` images x ``tr`` output rows x ``tw`` output columns, cut into ``nm``
+    wgmma M-tiles of 64 pixels: one output row of 64 (``mr`` 1, ``mc`` 64) where Wo is a
+    multiple of 64, else 8 x 8 pixels (``mr`` = ``mc`` = 8); ``mt_x`` x ``mt_y`` of them
+    an image. Its halo is ``hr`` rows of ``planes`` planes of ``hcp`` pixels (stride 1:
+    one plane of tw + 2 columns; stride 2: the odd columns, then the even ones, tw + 1
+    each), stored channel-planar: 16 bytes a pixel a plane, each 16-byte chunk of the
+    channels its own plane of ``plane_bytes``."""
+    B: int
+    H: int
+    W: int
+    Cin: int
+    Cout: int
+    stride: int
+    Ho: int
+    Wo: int
+    cpad: int
+    nt: int
+    x_bytes: int
+    out_bytes: int
+    mr: int
+    mc: int
+    tb: int
+    tr: int
+    tw: int
+    hr: int
+    hcp: int
+    planes: int
+    nm: int
+    mt_x: int
+    mt_y: int
+    tiles_x: int
+    tiles_y: int
+    tiles: int
+    plane_bytes: int
+    stage_bytes: int
+    src_plane: int
+    src_stage: int
+    stages: int
+    src_stages: int
+    staging_row: int
+    off_scales: int
+    off_w: int
+    off_ring: int
+    off_src: int
+    off_staging: int
+    smem: int
+    grid: int
+    c_ints: object = field(default=None, compare=False, repr=False)
+
+    def __post_init__(self):
+        vals = [getattr(self, f) for f in PIPE_FIELDS]
+        object.__setattr__(self, "c_ints", (ctypes.c_int * len(vals))(*vals))
+
+    route = "pipe"
+
+
+PIPE_FIELDS = tuple(f.name for f in fields(PipePlan) if f.name != "c_ints")
+
+
+def _pipe_tiles(b: int, ho: int, wo: int):
+    """The tiles a call may take, best first: (mr, mc, tb, mt_y, mt_x) of at most 4, 2
+    or 1 M-tiles of one output row of 64 pixels (Wo a multiple of 64), then of 8 x 8
+    pixels (Wo a multiple of 8; several whole images where one is a single M-tile row)."""
+    if wo % 64 == 0:
+        for nm in PIPE_TILE_MTILES:
+            yield 1, 64, 1, min(nm, ho), 1
+    if wo % 8:
+        return
+    for nm in PIPE_TILE_MTILES:
+        mt_x = min(wo // 8, nm)
+        rest = nm // mt_x
+        mt_y = 1
+        while 2 * mt_y <= min(rest, _cdiv(ho, 8)):
+            mt_y *= 2
+        tb = rest // mt_y if mt_y * 8 >= ho and mt_x * 8 >= wo else 1  # whole images only
+        yield 8, 8, min(tb, b), mt_y, mt_x
+
+
+def pipe_layout(cpad, nt, x_bytes, out_bytes, tb, hr, hcp, planes, stages, src_stages):
+    """conv_pipe.cuh ``pipe_layout``: (plane bytes, int8 stage bytes, landed plane bytes,
+    landed stage bytes, staging row, offsets of the scales, weights, int8 ring, landed
+    ring and staging rows, total). After the ring's mbarriers: the quantizing scales and
+    reciprocals (a float x), the block's weights (9 * cpad x nt, K-major core matrices),
+    the int8 ring (channel-planar, planes skewed by 128 / chunks bytes modulo 128), the
+    ring of x as the TMA copies land it (pixel-major, cpad channels a pixel), and each
+    consumer warp's 16 staged output rows."""
+    npx, chunks = tb * hr * hcp, cpad // 16
+    plane = _align128(npx * 16) + (16 * (8 // chunks) if chunks <= 8 else 16)
+    stage = _align128(chunks * planes * plane)
+    src_plane = _align128(npx * cpad * x_bytes)
+    src_stage = planes * src_plane
+    row = nt * out_bytes + 16
+    off_scales = PIPE_BARRIER_BYTES
+    off_w = off_scales + (_align128(8 * cpad) if x_bytes > 1 else 0)
+    off_ring = off_w + _align128(9 * cpad * nt)
+    off_src = off_ring + stages * stage
+    off_staging = off_src + src_stages * src_stage
+    total = off_staging + PIPE_CONSUMER_WARPS * 16 * row
+    return (plane, stage, src_plane, src_stage, row, off_scales, off_w, off_ring, off_src,
+            off_staging, total)
+
+
+@functools.lru_cache(maxsize=None)
+def pipe_plan(b: int, h: int, w: int, cin: int, cout: int, stride: int, x_bytes: int,
+              out_bytes: int):
+    """The pipeline route's plan of one call, or None where the route cannot take it:
+    Cin a multiple of 16 (16-byte chunks of every x dtype), Cout <= 64 (one wgmma N),
+    Wo a multiple of 8, W even at stride 2 (pairs of columns), and a tile whose TMA box
+    and rings fit. Of the tiles of ``_pipe_tiles`` whose int8 ring holds at least 3
+    stages beside a landing ring of 1 or 2: the deepest landing ring, then the tile that
+    reads the fewest halo pixels per output pixel, then the deepest int8 ring."""
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    if (cin % 16 or cout > 64 or stride not in (1, 2) or (stride == 2 and w % 2)
+            or x_bytes not in (1, 2, 4) or out_bytes not in (2, 4)):
+        return None
+    cpad = channels_padded(cin, 1)
+    nt = next(n for n in (8, 16, 32, 64) if n >= cout)
+    best = None
+    for mr, mc, tb, mt_y, mt_x in _pipe_tiles(b, ho, wo):
+        tr, tw = mr * mt_y, mc * mt_x
+        hr = (tr - 1) * stride + 3
+        hcp = tw + 2 if stride == 1 else tw + 1
+        if max(hr, hcp, tb, cpad) > PIPE_BOX_MAX:
+            continue
+        nm = tb * mt_y * mt_x
+        for stages in PIPE_STAGES:
+            for src_stages in PIPE_SRC_STAGES:
+                lay = pipe_layout(cpad, nt, x_bytes, out_bytes, tb, hr, hcp, stride, stages,
+                                  src_stages)
+                key = (-src_stages, stride * tb * hr * hcp / nm, -stages)
+                if lay[-1] <= SMEM_BLOCK and (best is None or key < best[0]):
+                    best = key, (mr, mc, tb, mt_y, mt_x, tr, tw, hr, hcp, nm, stages,
+                                 src_stages, lay)
+    if best is None:
+        return None
+    mr, mc, tb, mt_y, mt_x, tr, tw, hr, hcp, nm, stages, src_stages, lay = best[1]
+    (plane, stage, src_plane, src_stage, row, off_scales, off_w, off_ring, off_src,
+     off_staging, total) = lay
+    tiles_x, tiles_y = _cdiv(wo, tw), _cdiv(ho, tr)
+    tiles = _cdiv(b, tb) * tiles_y * tiles_x
+    return PipePlan(B=b, H=h, W=w, Cin=cin, Cout=cout, stride=stride, Ho=ho, Wo=wo,
+                    cpad=cpad, nt=nt, x_bytes=x_bytes, out_bytes=out_bytes, mr=mr, mc=mc,
+                    tb=tb, tr=tr, tw=tw, hr=hr, hcp=hcp, planes=stride, nm=nm, mt_x=mt_x,
+                    mt_y=mt_y, tiles_x=tiles_x, tiles_y=tiles_y, tiles=tiles,
+                    plane_bytes=plane, stage_bytes=stage, src_plane=src_plane,
+                    src_stage=src_stage, stages=stages, src_stages=src_stages,
+                    staging_row=row, off_scales=off_scales, off_w=off_w, off_ring=off_ring,
+                    off_src=off_src, off_staging=off_staging, smem=total,
+                    grid=min(tiles, NUM_SMS))
+
+
+def pipe_plan_ok(p: PipePlan) -> bool:
+    """conv_pipe.cuh ``pipe_plan_ok``: a plan the kernel runs and its layout agrees with."""
+    lay = pipe_layout(p.cpad, p.nt, p.x_bytes, p.out_bytes, p.tb, p.hr, p.hcp, p.planes,
+                      p.stages, p.src_stages)
+    return (p.Ho == (p.H - 1) // p.stride + 1 and p.Wo == (p.W - 1) // p.stride + 1
+            and p.Cin % 16 == 0 and p.cpad == channels_padded(p.Cin, 1)
+            and p.nt in (8, 16, 32, 64) and p.Cout <= p.nt and p.x_bytes in (1, 2, 4)
+            and p.out_bytes in (2, 4) and p.stride in (1, 2) and p.planes == p.stride
+            and (p.stride == 1 or p.W % 2 == 0)
+            and ((p.mr, p.mc) == (1, 64) or (p.mr, p.mc) == (8, 8))
+            and p.tr == p.mr * p.mt_y and p.tw == p.mc * p.mt_x
+            and p.nm == p.tb * p.mt_y * p.mt_x and 1 <= p.nm <= 4
+            and p.hr == (p.tr - 1) * p.stride + 3
+            and p.hcp == p.tw + (2 if p.stride == 1 else 1)
+            and max(p.hr, p.hcp, p.tb, p.cpad) <= PIPE_BOX_MAX
+            and p.tiles_x == _cdiv(p.Wo, p.tw) and p.tiles_y == _cdiv(p.Ho, p.tr)
+            and p.tiles == _cdiv(p.B, p.tb) * p.tiles_y * p.tiles_x
+            and p.stages >= 3 and p.stages <= 4
+            and p.src_stages in PIPE_SRC_STAGES
+            and (p.plane_bytes, p.stage_bytes, p.src_plane, p.src_stage, p.staging_row,
+                 p.off_scales, p.off_w, p.off_ring, p.off_src, p.off_staging, p.smem) == lay
+            and p.smem <= SMEM_BLOCK and 0 < p.grid <= min(p.tiles, NUM_SMS))
+
+
+def k5_route(b, h, w, cin, cout, stride, x_bytes: int, out_bytes: int):
+    """The plan K5 launches for a call: the pipeline route's where the call has at least
+    PIPE_MIN_M output pixels and the route takes its shape (``pipe_plan``), else the halo
+    route's (``k5_plan``).
+
+    The threshold was chosen by timing both routes at every K5 call shape of the int8
+    rollout (scripts/k5_shapes.py; NVIDIA H100 80GB HBM3, 700 W; PERF.md §6). K5
+    a step at B 512 / B 32 with the pipeline from M = 16,384 or 32,768: 312.1 / 40.5 ms;
+    from 8,192: 312.1 / 43.2; from 65,536 or 131,072: 316.7 / 41.3; from 262,144: 323.3 /
+    50.4; halo only: 502.6 / 50.4; the faster route at every shape: 309.5 / 39.7. The
+    pipeline wins every stride-1 call of Cin 64 and 128 from M = 32,768 on; the halo
+    kernel is faster at some stride-2 and Cin-32 calls (by 2-21 %, the 2.6 / 0.8 ms of the
+    gap), and keeps every call of B 1 play and of the rollout's 16x16 and 8x8 levels at
+    B 32."""
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    if b * ho * wo >= PIPE_MIN_M:
+        p = pipe_plan(b, h, w, cin, cout, stride, x_bytes, out_bytes)
+        if p is not None:
+            return p
+    return k5_plan(b, h, w, cin, cout, stride, x_bytes == 1)
 
 
 # ---------------------------------------------------------------------------

@@ -229,3 +229,158 @@ def test_wgrad_plan_covers_every_dy_pixel_once_and_reads_inside_the_halo(sig):
                     koff = kx if s == 1 else np.choose(kx, [0, half, 1])
                     addr = pix + (ky * p.hc + koff) * p.pxb + cc * 16
                     assert addr.min() >= 0 and (addr + 16).max() <= p.hr * p.hc * p.pxb
+
+
+# ---------------------------------------------------------------------------
+# K5's pipeline route (kernels/csrc/conv_pipe.cuh) and the route rule
+
+# Ragged pipeline shapes (B, H, W, Cin, Cout, stride): an 8x8 image group of 1 of 4, rows
+# past Ho (row and 8 x 8 M-tiles), columns past Wo, odd H at stride 2, Cin 16 and 48,
+# Cout 24 and 3, three M-tiles across Wo = 24.
+PIPE_RAGGED = [(5, 8, 8, 64, 64, 1), (3, 37, 64, 64, 64, 1), (2, 36, 40, 64, 32, 1),
+               (2, 47, 48, 32, 32, 2), (2, 40, 40, 16, 24, 1), (3, 48, 48, 48, 64, 2),
+               (2, 64, 64, 64, 3, 1), (1, 16, 16, 128, 64, 1)]
+
+
+def _pipe_cases():
+    """(sig at a small B, x bytes, out bytes, a rollout shape)."""
+    for h, cin, cout, s in ROLLOUT:
+        if cin % 16 == 0:
+            for xb in (1, 2, 4):
+                yield (2 if h > 8 else 5, h, h, cin, cout, s), xb, 2 if xb > 1 else 4, True
+    for sig in PIPE_RAGGED:
+        yield sig, 2, 2, False
+
+
+@pytest.mark.parametrize("sig,x_bytes,out_bytes,rollout", list(_pipe_cases()), ids=str)
+def test_pipe_plan_fits_covers_every_pixel_once_and_reads_its_halo(sig, x_bytes, out_bytes,
+                                                                   rollout):
+    """The pipeline route's plan agrees with the kernel's own check (conv_pipe.cuh
+    pipe_plan_ok): at most 227 KB of shared memory, a ring of at least 3 int8 stages, one
+    block per SM at most. At the rollout's B = 32 and 512 the tiles divide the images, so
+    every consumer row of every M-tile holds a real pixel. Replayed at a small B: the
+    tiles' M-tiles cover every output pixel exactly once, and each row's A address for
+    every tap (the kernel's descriptor arithmetic: the M-tile's base, the tap's row and
+    column or stride-2 plane, eight pixels a core matrix, SBO to the next eight) lands
+    inside the TMA box of its tile on the input pixel the conv needs."""
+    b, h, w, cin, cout, s = sig
+    for big in (32, 512) if rollout else ():
+        p = conv_plan.pipe_plan(big, h, w, cin, cout, s, x_bytes, out_bytes)
+        assert conv_plan.pipe_plan_ok(p) and p.smem <= 232_448 and p.stages >= 3
+        assert p.Ho % p.tr == 0 and p.Wo % p.tw == 0 and big % p.tb == 0
+    p = conv_plan.pipe_plan(b, h, w, cin, cout, s, x_bytes, out_bytes)
+    assert conv_plan.pipe_plan_ok(p) and p.smem <= 232_448 and p.stages >= 3
+    assert p.grid <= min(p.tiles, conv_plan.NUM_SMS)
+    row_bytes = p.hcp * 16
+    img_bytes = p.hr * row_bytes
+    sbo = 128 if p.mr == 1 else s * row_bytes
+    seen = np.zeros((b, p.Ho, p.Wo), dtype=np.int64)
+    for t in range(p.tiles):
+        grp, r = divmod(t, p.tiles_x * p.tiles_y)
+        ty, tx = divmod(r, p.tiles_x)
+        img0, oy0, ox0 = grp * p.tb, ty * p.tr, tx * p.tw
+        for mt in range(p.nm):
+            ib, rm = divmod(mt, p.mt_y * p.mt_x)
+            my, mx = divmod(rm, p.mt_x)
+            mbase = ib * img_bytes + s * my * p.mr * row_bytes + mx * p.mc * 16
+            for row in range(64):
+                img = img0 + ib
+                oy = oy0 + my * p.mr + (0 if p.mr == 1 else row // 8)
+                ox = ox0 + mx * p.mc + (row if p.mr == 1 else row % 8)
+                if not (img < b and oy < p.Ho and ox < p.Wo):
+                    continue
+                seen[img, oy, ox] += 1
+                for ky in range(3):
+                    for kx in range(3):
+                        col = kx * 16 if s == 1 else (p.plane_bytes if kx == 1 else 16 * (kx == 2))
+                        a = mbase + ky * row_bytes + col + (row // 8) * sbo + (row % 8) * 16
+                        plane, rest = divmod(a, p.plane_bytes)
+                        bi, rest = divmod(rest, img_bytes)
+                        hy, hx = divmod(rest // 16, p.hcp)
+                        assert plane < p.planes and bi == ib and hy < p.hr
+                        iy = s * oy0 - 1 + hy  # the box's first row is the halo's
+                        ix = (ox0 - 1 + hx if s == 1 else 2 * (ox0 - 1 + hx) + 1 if plane == 0
+                              else 2 * (ox0 + hx))
+                        assert (iy, ix) == (s * oy - 1 + ky, s * ox - 1 + kx)
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("b,h,cin,stride,x_bytes,route", [
+    (512, 8, 64, 1, 1, "pipe"), (511, 8, 64, 1, 1, "halo"), (32, 32, 128, 1, 2, "pipe"),
+    (31, 32, 128, 1, 2, "halo"), (512, 16, 32, 2, 2, "pipe"), (511, 16, 32, 2, 2, "halo"),
+    (32, 16, 64, 1, 1, "halo"), (512, 64, 6, 1, 2, "halo")])
+def test_k5_route_takes_the_pipeline_from_pipe_min_m_output_pixels(b, h, cin, stride, x_bytes,
+                                                                    route):
+    """K5's route is a function of the call's shape: the pipeline from PIPE_MIN_M output
+    pixels B * Ho * Wo on (here exactly 32,768 against 64 or 1,024 fewer, at stride 1 and
+    2), where Cin comes in 16-byte chunks; the halo kernel below it (the rollout's 16x16
+    level at B 32) and at Cin = 6."""
+    ho = (h - 1) // stride + 1
+    p = conv_plan.k5_route(b, h, h, cin, 64, stride, x_bytes, 2)
+    assert p.route == route
+    assert (b * ho * ho >= conv_plan.PIPE_MIN_M) == (route == "pipe" or cin == 6)
+    if route == "halo":
+        assert p == k5_plan(b, h, h, cin, 64, stride, x_bytes == 1)
+
+
+# K3's plans at every 3x3 conv signature of the rollout (ROLLOUT) at B = 32 and 512, as
+# they were before K5's pipeline route came beside them: K3 keeps conv_halo.cuh and its
+# plans. (B, H, Cin, Cout, stride): (nt, nslices, tr, tw, hc, stages, tiles, smem, grid).
+K3_FIELDS = ("nt", "nslices", "tr", "tw", "hc", "stages", "tiles", "smem", "grid")
+K3_PLANS = {
+    (32, 64, 64, 64, 1): (64, 1, 2, 64, 66, 2, 1024, 149760, 132),
+    (32, 64, 128, 64, 1): (64, 1, 2, 64, 66, 1, 1024, 219264, 132),
+    (32, 8, 64, 64, 1): (16, 4, 8, 8, 10, 1, 32, 32896, 128),
+    (32, 32, 64, 64, 1): (64, 1, 4, 32, 34, 2, 256, 143360, 132),
+    (32, 64, 64, 3, 1): (8, 1, 2, 64, 66, 2, 1024, 85248, 264),
+    (32, 32, 128, 64, 1): (64, 1, 4, 32, 34, 1, 256, 203008, 132),
+    (32, 16, 64, 64, 1): (32, 2, 8, 16, 18, 1, 64, 62848, 128),
+    (32, 8, 128, 64, 1): (16, 4, 8, 8, 10, 1, 32, 64128, 128),
+    (32, 16, 128, 64, 1): (32, 2, 8, 16, 18, 1, 64, 122752, 128),
+    (32, 64, 32, 32, 1): (32, 1, 2, 64, 66, 2, 1024, 60672, 264),
+    (32, 64, 64, 64, 2): (64, 1, 4, 32, 65, 1, 256, 158080, 132),
+    (32, 32, 64, 64, 2): (32, 2, 8, 16, 33, 1, 64, 117760, 128),
+    (32, 16, 64, 64, 2): (16, 4, 8, 8, 17, 1, 32, 60160, 128),
+    (32, 64, 6, 32, 1): (32, 1, 2, 64, 66, 2, 1024, 46080, 264),
+    (32, 8, 32, 32, 1): (16, 2, 8, 8, 10, 1, 32, 19456, 64),
+    (32, 32, 32, 32, 1): (32, 1, 4, 32, 34, 1, 256, 36864, 256),
+    (32, 16, 32, 32, 1): (16, 2, 8, 16, 18, 1, 64, 23680, 128),
+    (32, 64, 32, 32, 2): (32, 1, 4, 32, 65, 1, 256, 65280, 256),
+    (32, 16, 32, 32, 2): (16, 2, 8, 8, 17, 1, 32, 32384, 64),
+    (32, 32, 32, 32, 2): (16, 2, 8, 16, 33, 1, 64, 54144, 128),
+    (32, 64, 12, 64, 1): (64, 1, 2, 64, 66, 2, 1024, 88064, 264),
+    (32, 64, 3, 64, 1): (64, 1, 2, 64, 66, 2, 1024, 88064, 264),
+    (32, 64, 3, 32, 1): (32, 1, 2, 64, 66, 2, 1024, 46080, 264),
+    (32, 16, 32, 64, 1): (32, 2, 8, 16, 18, 1, 64, 36864, 128),
+    (512, 64, 64, 64, 1): (64, 1, 2, 64, 66, 2, 16384, 149760, 132),
+    (512, 64, 128, 64, 1): (64, 1, 2, 64, 66, 1, 16384, 219264, 132),
+    (512, 8, 64, 64, 1): (64, 1, 8, 8, 10, 2, 512, 143360, 132),
+    (512, 32, 64, 64, 1): (64, 1, 4, 32, 34, 2, 4096, 143360, 132),
+    (512, 64, 64, 3, 1): (8, 1, 2, 64, 66, 2, 16384, 85248, 264),
+    (512, 32, 128, 64, 1): (64, 1, 4, 32, 34, 1, 4096, 203008, 132),
+    (512, 16, 64, 64, 1): (64, 1, 8, 16, 18, 2, 1024, 143360, 132),
+    (512, 8, 128, 64, 1): (64, 1, 8, 8, 10, 2, 512, 217088, 132),
+    (512, 16, 128, 64, 1): (64, 1, 8, 16, 18, 1, 1024, 196480, 132),
+    (512, 64, 32, 32, 1): (32, 1, 2, 64, 66, 2, 16384, 60672, 264),
+    (512, 64, 64, 64, 2): (64, 1, 4, 32, 65, 1, 4096, 158080, 132),
+    (512, 32, 64, 64, 2): (64, 1, 8, 16, 33, 1, 1024, 154624, 132),
+    (512, 16, 64, 64, 2): (64, 1, 8, 8, 17, 2, 512, 157184, 132),
+    (512, 64, 6, 32, 1): (32, 1, 2, 64, 66, 2, 16384, 46080, 264),
+    (512, 8, 32, 32, 1): (32, 1, 8, 8, 10, 2, 512, 55296, 264),
+    (512, 32, 32, 32, 1): (32, 1, 4, 32, 34, 2, 4096, 55296, 264),
+    (512, 16, 32, 32, 1): (32, 1, 8, 16, 18, 2, 1024, 55296, 264),
+    (512, 64, 32, 32, 2): (32, 1, 4, 32, 65, 2, 4096, 112128, 264),
+    (512, 16, 32, 32, 2): (32, 1, 8, 8, 17, 2, 512, 64768, 264),
+    (512, 32, 32, 32, 2): (32, 1, 8, 16, 33, 2, 1024, 108288, 264),
+    (512, 64, 12, 64, 1): (64, 1, 2, 64, 66, 2, 16384, 88064, 264),
+    (512, 64, 3, 64, 1): (64, 1, 2, 64, 66, 2, 16384, 88064, 264),
+    (512, 64, 3, 32, 1): (32, 1, 2, 64, 66, 2, 16384, 46080, 264),
+    (512, 16, 32, 64, 1): (64, 1, 8, 16, 18, 2, 1024, 106496, 264),
+}
+
+
+@pytest.mark.parametrize("sig", list(K3_PLANS), ids=str)
+def test_k3_plans_are_unchanged(sig):
+    b, h, cin, cout, s = sig
+    p = k3_plan(b, h, h, cin, cout, s)
+    assert tuple(getattr(p, f) for f in K3_FIELDS) == K3_PLANS[sig]

@@ -193,6 +193,154 @@ def test_k5_quantizes_near_rounding_ties_like_a_true_division():
         assert torch.equal(y, conv3x3_int8_plain(xin, wq, ws, am, None, 1, torch.float32))
 
 
+# K5's call shapes in the int8 rollout, (H = W, Cin, Cout, stride) of x (B, H, W, Cin):
+# the denoiser's and the rew/end model's convs at every level, on K4's codes or on bf16
+# (scripts/k5_shapes.py SIGNATURES; its Cin = 6 conv takes no pipeline plan).
+K5_ROLLOUT = [(h, cin, cout, s) for h in (64, 32, 16, 8)
+              for cin, cout, s in ((64, 64, 1), (128, 64, 1), (32, 32, 1), (64, 64, 2),
+                                   (32, 32, 2), (64, 3, 1))
+              if not (h == 8 and s == 2) and not (cout == 3 and h != 64)]
+# Ragged pipeline tiles, (B, H, W, Cin, Cout, stride): a last image group of 1 of 4 (8x8),
+# rows past Ho in the last tile (row and 8 x 8 M-tiles), columns past Wo, odd H at
+# stride 2, Cin = 16 and 48 (a zero-filled chunk past Cin), Cout = 24 and 3.
+K5_RAGGED = [(5, 8, 8, 64, 64, 1), (3, 37, 64, 64, 64, 1), (2, 36, 40, 64, 32, 1),
+             (2, 47, 48, 32, 32, 2), (2, 40, 40, 16, 24, 1), (3, 48, 48, 48, 64, 2),
+             (2, 64, 64, 64, 3, 1), (1, 16, 16, 128, 64, 1)]
+
+
+def _k5_routes_agree(b, h, w, cin, cout, s, g, against_plain=False):
+    """K5 at one shape on the pipeline route and on the halo route, bit for bit: x int8,
+    bf16 and f32; out bf16 and f32; with a bias, or with a QTensor's per-sample scale.
+    Only an f32 x with an f32 out may lack a pipeline plan (its rings and staging rows do
+    not fit beside 128 channels, or stride 2 at 64); the route then keeps the halo kernel."""
+    from diamond_tpu_torch.ops import conv_plan
+
+    x = torch.randn(b, h, w, cin, device="cuda", generator=g) * 1.5
+    am = x.abs().amax(dim=(0, 1, 2)) * 0.9
+    wq = torch.randint(-127, 128, (3, 3, cin, cout), device="cuda", generator=g,
+                       dtype=torch.int8)
+    ws = torch.rand(cout, device="cuda", generator=g) * 1e-3 + 1e-4
+    bias = torch.randn(cout, device="cuda", generator=g)
+    ss = torch.rand((b, 1), device="cuda", generator=g) + 0.1
+    for xin in (quantize_static(x, am), x.bfloat16(), x):
+        for out in (torch.bfloat16, torch.float32):
+            pipe = conv_plan.pipe_plan(b, h, w, cin, cout, s, xin.element_size(),
+                                       torch.empty((), dtype=out).element_size())
+            halo = conv_plan.k5_plan(b, h, w, cin, cout, s, xin.dtype == torch.int8)
+            if pipe is None:
+                assert xin.dtype == out == torch.float32, (b, h, w, cin, cout, s, xin.dtype)
+                assert conv_plan.k5_route(b, h, w, cin, cout, s, 4, 4) == halo
+                continue
+            for bb, sc in ((bias, None), (None, ss)):
+                args = (xin, wq, ws, am, bb, s, out, sc)
+                y = conv3x3_int8(*args, plan=pipe)
+                ref = (conv3x3_int8_plain(*args) if against_plain
+                       else conv3x3_int8(*args, plan=halo))
+                torch.cuda.synchronize()
+                assert torch.equal(y, ref), (b, h, w, cin, cout, s, xin.dtype, out, sc is None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["b512", "b32", "ragged"])
+def test_k5_pipeline_route_equals_the_halo_route(case):
+    """K5's pipeline route (conv_pipe.cuh) against its halo route, bit for bit (int32
+    sums exact in any order, the same epilogue roundings), at every K5 call shape of the
+    int8 rollout at B = 512 and 32 (each forced onto the pipeline's plan), and against
+    the plain version at the ragged tiles (K5_RAGGED)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    g = torch.Generator(device="cuda").manual_seed(21)
+    if case == "ragged":
+        for sig in K5_RAGGED:
+            _k5_routes_agree(*sig, g, against_plain=True)
+        return
+    b = 512 if case == "b512" else 32
+    for h, cin, cout, s in K5_ROLLOUT:
+        _k5_routes_agree(b, h, h, cin, cout, s, g)
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_k5_large_rollout_calls_take_the_pipeline():
+    """At B = 512 every K5 call of the rollout with at least PIPE_MIN_M output pixels
+    (and 16-channel chunks) is launched on the pipeline, the others on the halo kernel,
+    one launch a call: ``conv3x3_int8.routes`` counts them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from diamond_tpu_torch.ops import conv_plan
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for h, cin, cout, s in K5_ROLLOUT + [(64, 6, 32, 1)]:
+        x = torch.randint(-127, 128, (512, h, h, cin), device="cuda", generator=g,
+                          dtype=torch.int8)
+        wq = torch.randint(-127, 128, (3, 3, cin, cout), device="cuda", generator=g,
+                           dtype=torch.int8)
+        ws, bias = torch.rand(cout, device="cuda") * 1e-3, torch.randn(cout, device="cuda")
+        before, launches = conv3x3_int8.routes.copy(), conv3x3_int8.launches
+        conv3x3_int8(x, wq, ws, None, bias, s, torch.bfloat16)
+        ho = (h - 1) // s + 1
+        large = 512 * ho * ho >= conv_plan.PIPE_MIN_M and cin % 16 == 0
+        route = "pipe" if large else "halo"
+        assert conv3x3_int8.launches == launches + 1
+        assert conv3x3_int8.routes - before == {route: 1}, (h, cin, cout, s)
+    torch.cuda.synchronize()
+
+
+def _bench_kernel_patterns():
+    """The kernel-name patterns of the benchmark's K5 readers, as they are: benchmarks/
+    metrics/int8_device_ms_per_step.py and conv_roofline_pct.py ``KERNELS``."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    bench = Path(__file__).resolve().parents[1] / "benchmarks"
+    if str(bench) not in sys.path:
+        sys.path.insert(0, str(bench))  # the readers import harness.readers
+    out = {}
+    for name in ("int8_device_ms_per_step", "conv_roofline_pct"):
+        spec = importlib.util.spec_from_file_location(f"bench_metric_{name}",
+                                                      bench / "metrics" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        out[name] = mod.KERNELS
+    return out
+
+
+@pytest.mark.cuda
+def test_k5_pipeline_kernels_keep_the_names_the_benchmark_reads():
+    """Every instance of the pipeline kernel the rollout launches (codes and bf16 x, NT
+    64, 32 and 8) and the f32 ones, profiled once each: the benchmark's K5 readers
+    (int8 device time, conv roofline) match its profiler name."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import re
+
+    from diamond_tpu_torch.ops import conv_plan
+
+    patterns = _bench_kernel_patterns()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    calls = []
+    for xdt in (torch.int8, torch.bfloat16, torch.float32):
+        for cin, cout in ((64, 64), (32, 32), (64, 3)):
+            x = torch.randn(2, 64, 64, cin, device="cuda", generator=g)
+            am = x.abs().amax(dim=(0, 1, 2))
+            xin = quantize_static(x, am) if xdt == torch.int8 else x.to(xdt)
+            wq = torch.randint(-127, 128, (3, 3, cin, cout), device="cuda", generator=g,
+                               dtype=torch.int8)
+            plan = conv_plan.pipe_plan(2, 64, 64, cin, cout, 1, xin.element_size(), 2)
+            calls.append((xin, wq, torch.rand(cout, device="cuda"), am, None, 1,
+                          torch.bfloat16, None, plan))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for *args, plan in calls:
+            conv3x3_int8(*args, plan=plan)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if "pipe::conv3x3_halo_wgmma" in e.key}
+    assert len(names) == len(calls), names
+    for name in names:
+        for reader, pattern in patterns.items():
+            assert re.search(pattern, name), (reader, name)
+
+
 # The norm signature classes of both rollout paths, (B, H, C): every (H, C) of the
 # denoiser, rew/end and actor-critic norms (B = 32 up to 16x16, 4 above); then the ragged
 # cases: B = 1, C = 32 with one group, C = 128, odd H = W = 9, C = 96, the f32 64x64x128
